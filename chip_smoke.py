@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -7,26 +7,43 @@ Run from the repository root with no arguments:
 Phases, in order, one line (or a few) of output each; any failure raises
 and the script exits non-zero without printing the result line:
 
-1. device  - a CUDA device must be present; prints its name, the torch and
-             CUDA versions and ``nvidia-smi``'s name and power limit.
-2. build   - compiles ``oppositerenderer_tpu_torch/csrc/intersect.cu`` with
-             nvcc for sm_90a and prints the build time and ptxas report.
-3. kernels - each kernel against its plain PyTorch version on the same
-             CUDA tensors (random rays from a numpy seed) at the main path's
-             shape and beyond; results must be equal bit for bit (the
-             library is built with --fmad=false). Times both with CUDA
-             events.
-4. goldens - the port's Renderer at the golden PT configuration on the
-             eight Cornell scenes against ``tests/goldens/goldens.npz``.
-5. main    - PT on CornellSmall at 512x512 with the default RenderConfig,
-             seed 0, 20 iterations: one warm-up render, then 3 timed reps.
-             Each rep must launch each kernel 20 x 5 times.
+1. device      - a CUDA device must be present; prints its name, the torch
+                 and CUDA versions and ``nvidia-smi``'s name and power limit.
+2. build       - one nvcc call compiles ``csrc/intersect.cu`` and
+                 ``csrc/gather.cu`` for sm_90a into one library; prints its
+                 cache key, the build time and ptxas' registers and spills.
+3. kernels     - each kernel against its plain PyTorch version on the same
+                 CUDA tensors. B1 and B2 (random rays from a numpy seed, at
+                 the PT path's shape and beyond) must be equal bit for bit
+                 (the library is built with --fmad=false). B3 on three
+                 inputs: the synthetic case of tests/test_pallas_gather.py
+                 (check_normal on and off), its clustered variant with
+                 random u_rows (row and chunk subsampling), and the grid and
+                 hitpoints of one CornellSmall 512^2 PPM iteration with 1<<20
+                 photons; stats equal, sums within rtol 1e-4 + 1e-6 max|ref|.
+                 Times kernels and plain versions with CUDA events.
+4. goldens     - the port's Renderer at the golden PT configuration on the
+                 eight Cornell scenes against ``tests/goldens/goldens.npz``.
+5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
+                 seed 0, 20 iterations: one warm-up render, then 3 timed reps.
+                 Each rep must launch B1 and B2 20 x 5 times each.
+6. ppm-goldens - PPM at the golden PPM configuration (3 iterations, seed 7)
+                 on the eight scenes against the ``*__ppm`` goldens, which
+                 JAX rendered with its budgeted gather: statistical bounds.
+7. ppm-parity  - one PPM iteration of CornellSmall at 64^2, seed 7, on the
+                 card and on the CPU (plain versions), pixel by pixel.
+8. ppm-main    - PPM on CornellSmall at 512x512, 1<<20 photons, every other
+                 RenderConfig field at its default, seed 0: one warm-up
+                 render, then 3 timed reps of 5 iterations. Each rep must
+                 launch B3 5 times, B1 5 x (9 + 7) and B2 5 x 4 times.
 
-The line before the last is a JSON object with the kernels' launches,
-errors and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with the kernels' launches over
+the main phases (5 and 8), errors and times; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,17 +68,47 @@ GOLDEN_RTOL = 5e-3
 GOLDEN_MAX_FLIPPED = 20
 GOLDEN_MEAN_RTOL = 1e-3
 
+GOLDEN_PPM_ITERS = 3
+# ppm-goldens: the *__ppm goldens come from JAX's budgeted gather, the
+# port's PPM takes the tile gather, so the two agree statistically
+# (tests/test_pallas_gather.py:98-100): the image mean within 12%, and the
+# pixel correlation at least 0.97, or, where JAX's own tile gather at this
+# configuration stays below 0.97 (its estimator's variance on these
+# scenes: JAX_TILED_GOLDEN_CORR, measured on the CPU with
+# use_pallas_gather=True), at least that value less 0.01
+PPM_GOLDEN_MEAN_RTOL = 0.12
+PPM_GOLDEN_MIN_CORR = 0.97
+JAX_TILED_GOLDEN_CORR = {"CornellSmallSmallSpheres": 0.9621,
+                         "CornellSmallPointDistant": 0.7712,
+                         "CornellSmallPointTest": 0.9658}
+# ppm-parity and tests/test_torch_ppm.py: the same estimator on two devices
+PPM_PIXEL_RTOL = 1e-3
+PPM_MIN_AGREEING = 0.99
+PPM_MEAN_RTOL = 1e-3
+# B3 against its plain version: the same terms summed in another order
+GATHER_RTOL = 1e-4
+GATHER_ATOL_REL = 1e-6
+
 MAIN_SCENE = "CornellSmall"
 MAIN_SIZE = 512
 MAIN_ITERS = 20
 MAIN_REPS = 3
 TIMING_REPS = 20
+# bench.py:232-235: the PPM case runs max(2, iterations // 4) iterations
+PPM_MAIN_PHOTONS = 1 << 20
+PPM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
+PLAIN_GATHER_REPS = 3
 
 KERNELS = {
     "closest_hit_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:56",
     "occluded_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:82",
+    "gather_photons_tiled": "oppositerenderer_tpu/accel/pallas_gather.py:180",
 }
-KERNEL_SOURCE = "oppositerenderer_tpu_torch/csrc/intersect.cu"
+KERNEL_SOURCES = {
+    "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
+    "occluded_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
+    "gather_photons_tiled": "oppositerenderer_tpu_torch/csrc/gather.cu",
+}
 
 
 def golden_pt_config():
@@ -73,6 +120,30 @@ def golden_pt_config():
         photons_per_iteration=1 << 14, photon_grid_resolution=32,
         gather_photon_budget=64, vcm_max_path_length=6,
         iterations_per_dispatch=GOLDEN_ITERS)
+
+
+def golden_ppm_config():
+    """The PPM golden configuration of scripts/make_goldens.py."""
+    from oppositerenderer_tpu_torch.config import RenderMethod
+    return golden_pt_config().replace(
+        render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
+        iterations_per_dispatch=GOLDEN_PPM_ITERS)
+
+
+def ppm_main_config():
+    """The JAX bench's PPM case (bench.py:232-235) at 512^2."""
+    from oppositerenderer_tpu_torch.config import RenderConfig, RenderMethod
+    return RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE,
+                        render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
+                        photons_per_iteration=PPM_MAIN_PHOTONS)
+
+
+def ppm_rays_per_iteration(cfg) -> int:
+    """Eye, photon and shadow ray lanes per PPM iteration (bench.py:36-40)."""
+    n = cfg.width * cfg.height
+    return (n * cfg.max_radiance_trace_depth
+            + cfg.photons_per_iteration * cfg.max_photon_trace_depth
+            + n * cfg.ppm_direct_shadow_samples)
 
 
 def pt_rays_per_iteration(cfg) -> int:
@@ -113,12 +184,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-    path, seconds, log = ik.build_library()
-    print(f"[build] {path.relative_to(REPO)} in {seconds:.2f} s (nvcc "
-          f"{' '.join(ik.NVCC_FLAGS)})")
+    from oppositerenderer_tpu_torch.accel import cuda_build
+    path, seconds, log = cuda_build.build_library()
+    sources = " ".join(str(src.relative_to(REPO))
+                       for src in cuda_build.SOURCES)
+    print(f"[build] cache key {cuda_build.cache_key()}: {sources} -> "
+          f"{path.relative_to(REPO)} in {seconds:.2f} s (nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)})")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print(f"[build] {line.strip()}")
 
 
@@ -213,6 +288,144 @@ def phase_kernels(dev) -> dict:
         print(f"[kernels] {name} rays={n} tris={tri9.shape[1]}: equal to "
               f"plain (hits {int(hit.sum())}, occluded {int(occ.sum())})"
               f"{timing}")
+    out["gather_photons_tiled"] = gather_kernel_cases(dev)
+    return out
+
+
+def gather_case(dev, n_photons=4096, n_tiles=2, radius=0.12, seed=0,
+                cluster=False):
+    """The synthetic case of tests/test_pallas_gather.py:16-41, drawn in the
+    same order from numpy and built by the port: photons in the unit cube
+    (``cluster`` piles half into a few cells, so rows overflow a chunk),
+    queries clustered per tile. Returns (grid, qpos, qnormal, radius)."""
+    from oppositerenderer_tpu_torch import photon_map as pm
+    rng = np.random.default_rng(seed)
+
+    def unit(k):
+        d = rng.standard_normal((k, 3)).astype(np.float32)
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    pos = rng.uniform(0, 1, (n_photons, 3)).astype(np.float32)
+    if cluster:
+        pos[: n_photons // 2] = (0.5 + 0.02 * rng.standard_normal(
+            (n_photons // 2, 3))).astype(np.float32)
+    power = rng.uniform(0, 1, (n_photons, 3)).astype(np.float32)
+    direction = unit(n_photons)
+    valid = rng.uniform(size=n_photons) < 0.9
+    photons = pm.PhotonBatch(*(torch.as_tensor(a, device=dev) for a in (
+        pos, power, direction, valid)))
+    grid = pm.build_photon_grid(photons, 16, min_cell_size=(
+        pm.min_cell_size_for_window(torch.tensor(radius, device=dev), 4)))
+    centers = rng.uniform(0.25, 0.75, (n_tiles, 3)).astype(np.float32)
+    jitter = (0.02 * rng.standard_normal((n_tiles, 256, 3))).astype(
+        np.float32)
+    qpos = np.clip(centers[:, None, :] + jitter, 0.0, 1.0).reshape(-1, 3)
+    return (grid, torch.as_tensor(qpos, device=dev),
+            torch.as_tensor(unit(n_tiles * 256), device=dev), radius)
+
+
+def ppm_gather_inputs(dev):
+    """The tile gather's inputs in one CornellSmall 512^2 PPM iteration
+    (iteration 0, seed 0, the bench's PPM configuration), recorded where
+    ``integrators/ppm.render_iteration`` calls the gather: (grid,
+    tile-ordered hitpoint positions and normals, radius, u_rows, found)."""
+    from oppositerenderer_tpu_torch.integrators import ppm
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    r = Renderer(scene, cam, ppm_main_config(), seed=0)
+    calls = []
+    gather = ppm.gather_photons_tiled
+
+    def record(grid, position, normal, radius, *, u_rows, valid, **kw):
+        calls.append((grid, position, normal, radius, u_rows, valid))
+        return gather(grid, position, normal, radius, u_rows=u_rows,
+                      valid=valid, **kw)
+
+    ppm.gather_photons_tiled = record
+    try:
+        r.compute_iteration(0)
+    finally:
+        ppm.gather_photons_tiled = gather
+    (call,) = calls
+    return call
+
+
+def _on_cpu(grid):
+    return dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).cpu()
+        for f in dataclasses.fields(grid) if f.name != "resolution"})
+
+
+def gather_kernel_cases(dev) -> dict:
+    """B3 against its plain version on the card: the tables (and so the
+    stats) computed on the card must equal those computed on the CPU, and
+    the kernel's sums the plain version's within GATHER_RTOL +
+    GATHER_ATOL_REL * max|ref|."""
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    rng = np.random.default_rng(17)
+    cases = []
+    for check_normal in (True, False):
+        grid, q, qn, r = gather_case(dev)
+        cases.append((f"synthetic check_normal={check_normal}", grid, q, qn,
+                      r, torch.zeros((2, gk.ROWS + 2), device=dev),
+                      check_normal, None))
+    grid, q, qn, r = gather_case(dev, n_photons=8192, cluster=True,
+                                 radius=0.2)
+    cases.append(("clustered", grid, q, qn, r, torch.as_tensor(
+        rng.uniform(size=(2, gk.ROWS + 2)).astype(np.float32), device=dev),
+        True, None))
+    grid, q, qn, r, u_rows, found = ppm_gather_inputs(dev)
+    cases.append((f"{MAIN_SCENE} {MAIN_SIZE}^2 PPM", grid, q, qn, r, u_rows,
+                  True, found))
+
+    out = {"max_abs_err": 0.0}
+    for i, (label, grid, q, qn, r, u, check_normal, valid) in \
+            enumerate(cases):
+        tables = gk._tile_tables(grid, q, r, u, valid)
+        cpu_tables = gk._tile_tables(
+            _on_cpu(grid), q.cpu(), r.cpu() if torch.is_tensor(r) else r,
+            u.cpu(), None if valid is None else valid.cpu())
+        for name, a, b in zip(("starts", "lens", "weights", "visited",
+                               "total"), tables, cpu_tables):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"B3 {label}: the card's {name} table "
+                                     "differs from the CPU's")
+        starts, lens, weights, visited, total = tables
+        r2 = torch.square(torch.as_tensor(r, dtype=torch.float32,
+                                          device=dev))
+        args = (starts, lens, weights, r2, q, qn, grid.position, grid.power,
+                grid.direction, check_normal)
+        got = gk.gather_photons_tiled_kernel(*args)
+        want = gk.gather_photons_tiled_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        scale = float(want.abs().max())
+        bad = int((err > GATHER_RTOL * want.double().abs()
+                   + GATHER_ATOL_REL * scale).sum())
+        max_err = float(err.max())
+        if bad or not bool(torch.isfinite(got).all()) or scale <= 0.0:
+            raise AssertionError(
+                f"B3 differs from its plain version on {label}: {bad} sums "
+                f"outside the tolerance, max |err| {max_err:.3g} "
+                f"(max |ref| {scale:.3g})")
+        out["max_abs_err"] = max(out["max_abs_err"], max_err)
+        timing = ""
+        if i == len(cases) - 1:   # the main path's shape
+            out["ms"] = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
+            out["plain_ms"] = cuda_ms(
+                lambda: gk.gather_photons_tiled_plain(*args),
+                reps=PLAIN_GATHER_REPS, warmup=1)
+            timing = (f"; ms kernel {out['ms']:.4f} (median of "
+                      f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
+                      f"(median of {PLAIN_GATHER_REPS})")
+        print(f"[kernels] B3 {label}: queries={q.shape[0]} photons="
+              f"{grid.position.shape[0]} (valid {int(grid.n_valid)}), "
+              f"visited {int(visited.sum())}, subsampled "
+              f"{int((total - visited).clamp_min(0).sum())}; stats equal, "
+              f"sums within tolerance (max |err| {max_err:.3g}, max |ref| "
+              f"{scale:.4g}){timing}")
     return out
 
 
@@ -307,15 +520,139 @@ def phase_main(dev) -> dict:
     return launches
 
 
+def image_agreement(img: np.ndarray, want: np.ndarray):
+    """(share of pixels within PPM_PIXEL_RTOL on every channel, relative
+    error of the image mean)."""
+    agree = np.isclose(img, want, rtol=PPM_PIXEL_RTOL, atol=0.0).all(axis=-1)
+    return float(agree.mean()), abs(float(img.mean()) / float(want.mean())
+                                    - 1.0)
+
+
+def phase_ppm_goldens(dev) -> None:
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import SCENE_NAMES, \
+        get_scene_by_name
+    goldens = np.load(GOLDENS)
+    for name in SCENE_NAMES:
+        scene, cam = get_scene_by_name(name, dev)
+        r = Renderer(scene, cam, golden_ppm_config(), seed=GOLDEN_SEED)
+        img = r.render(GOLDEN_PPM_ITERS).mean_radiance().cpu().numpy()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{name}: non-finite pixels")
+        want = goldens[f"{name}__ppm"].astype(np.float32)
+        mean_err = abs(float(img.mean()) / float(want.mean()) - 1.0)
+        corr = float(np.corrcoef(img.ravel(), want.ravel())[0, 1])
+        min_corr = min(PPM_GOLDEN_MIN_CORR,
+                       JAX_TILED_GOLDEN_CORR.get(name, 1.0) - 0.01)
+        print(f"[ppm-goldens] {name}: image mean off by {mean_err:.4f} "
+              f"(bound {PPM_GOLDEN_MEAN_RTOL}), pixel correlation "
+              f"{corr:.4f} (bound {min_corr:.4f})")
+        if mean_err > PPM_GOLDEN_MEAN_RTOL or corr < min_corr:
+            raise AssertionError(f"{name} PPM is further from its golden "
+                                 "than the tile estimator allows")
+
+
+def phase_ppm_parity(dev) -> None:
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    cfg = golden_ppm_config()
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene, cam = get_scene_by_name(MAIN_SCENE, d)
+        r = Renderer(scene, cam, cfg, seed=GOLDEN_SEED)
+        imgs.append(r.render(1).mean_radiance().cpu().numpy())
+    share, mean_err = image_agreement(*imgs)
+    print(f"[ppm-parity] {MAIN_SCENE} {cfg.width}x{cfg.height}, one "
+          f"iteration: {share:.4%} of the pixels within rtol "
+          f"{PPM_PIXEL_RTOL} of the CPU port's, image mean off by "
+          f"{mean_err:.2e}")
+    if (not np.isfinite(imgs[0]).all() or share < PPM_MIN_AGREEING
+            or mean_err > PPM_MEAN_RTOL):
+        raise AssertionError("PPM on the card differs from the CPU port")
+
+
+def phase_ppm_main(dev) -> dict:
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.film import save_png
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    cfg = ppm_main_config()
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    r = Renderer(scene, cam, cfg, seed=0)
+    t0 = time.perf_counter()
+    r.render(PPM_MAIN_ITERS)
+    print(f"[ppm-main] warm-up: {PPM_MAIN_ITERS} iterations in "
+          f"{time.perf_counter() - t0:.3f} s")
+    wrappers = (ik.closest_hit_tris, ik.occluded_tris,
+                gk.gather_photons_tiled)
+    # one closest-hit launch per eye and photon bounce, one any-hit per
+    # direct shadow sample, one gather per iteration
+    expected = {
+        "closest_hit_tris": PPM_MAIN_ITERS * (cfg.max_radiance_trace_depth
+                                              + cfg.max_photon_trace_depth),
+        "occluded_tris": PPM_MAIN_ITERS * cfg.ppm_direct_shadow_samples,
+        "gather_photons_tiled": PPM_MAIN_ITERS}
+    launches = {w.__name__: 0 for w in wrappers}
+    times = []
+    for rep in range(MAIN_REPS):
+        r.restart()
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = r.render(PPM_MAIN_ITERS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"[ppm-main] rep {rep}: {times[-1]:.4f} s, launches {counts}")
+        for k, c in counts.items():
+            if c != expected[k]:
+                raise AssertionError(f"{k} launched {c} times in a PPM rep, "
+                                     f"expected {expected[k]}")
+            launches[k] += c
+    med = statistics.median(times)
+    rays = ppm_rays_per_iteration(cfg) * PPM_MAIN_ITERS
+    per_it = {k: r.metrics[k] / PPM_MAIN_ITERS for k in (
+        "photons_stored", "photons_visited", "photon_subsampled")}
+    print(f"[ppm-main] {MAIN_SCENE} {MAIN_SIZE}x{MAIN_SIZE} PPM, "
+          f"{cfg.photons_per_iteration} photons: ms/iter median "
+          f"{med / PPM_MAIN_ITERS * 1e3:.3f}, min "
+          f"{min(times) / PPM_MAIN_ITERS * 1e3:.3f}, spread "
+          f"{(max(times) - min(times)) / med:.4f}; rays/s {rays / med:.4g}; "
+          "per iteration: " + ", ".join(f"{k} {v:.6g}"
+                                        for k, v in per_it.items()))
+
+    img = film.mean_radiance()
+    if tuple(img.shape) != (MAIN_SIZE, MAIN_SIZE, 3):
+        raise AssertionError(f"image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        raise AssertionError("PPM image is not finite and positive")
+    if per_it["photons_stored"] <= 0 or per_it["photons_visited"] <= 0:
+        raise AssertionError("PPM stored or gathered no photon")
+    png = Path(tempfile.gettempdir()) / "chip_smoke_cornellsmall_ppm.png"
+    save_png(film, png)
+    print(f"[ppm-main] image mean {float(img.mean()):.5f}, saved {png}")
+    return launches
+
+
 def main() -> int:
     name = phase_device()   # first: no CUDA device, no result
     dev = torch.device("cuda", 0)
+    # the plain versions' products in full float32, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     kernels = phase_kernels(dev)
     phase_goldens(dev)
-    launches = phase_main(dev)
+    launches = {k: 0 for k in KERNELS}
+    launches.update(phase_main(dev))
+    phase_ppm_goldens(dev)
+    phase_ppm_parity(dev)
+    for k, c in phase_ppm_main(dev).items():
+        launches[k] += c
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k], **kernels[k]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

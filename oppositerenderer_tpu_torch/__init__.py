@@ -4,8 +4,8 @@ The same renderer for an NVIDIA Hopper GPU: plain array code is PyTorch,
 and each Pallas TPU kernel of the JAX package becomes a kernel written by
 hand in CUDA C++ (``csrc/``), with a plain PyTorch version beside it that
 runs for CPU tensors. The package mirrors the JAX package's module paths.
-This slice covers path tracing with the dense intersector on the Cornell
-scenes; ``ROADMAP.md`` lists what follows.
+It covers path tracing and progressive photon mapping with the dense
+intersector on the Cornell scenes; ``ROADMAP.md`` lists what follows.
 """
 from .camera import Camera
 from .config import Intersector, RenderConfig, RenderMethod

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels: one nvcc call, one library.
+
+Every source of ``csrc/`` is compiled by one ``nvcc`` call for ``sm_90a``
+into a shared library with a plain C interface, at first use, into
+``_build/`` inside the package, and loaded with ctypes. The library's
+name carries a key that hashes the flags and every source, so an edit to
+any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
+without it raises. The wrappers (``intersect_kernels``,
+``gather_kernels``) take their entry points from :func:`library`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "intersect.cu", _PKG / "csrc" / "gather.cu")
+BUILD_DIR = _PKG / "_build"
+# --fmad=false: no multiply-add contraction, so the kernels round as the
+# plain versions do (the intersection kernels agree with theirs bit for bit)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# entry point -> argument types; every entry point returns cudaError_t
+ENTRY_POINTS = {
+    "closest_hit_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 5,
+    "occluded_tris": [_PTR] * 6 + [_I32, _I32] + [_PTR] * 2,
+    "gather_photons_tiled": [_PTR] * 9 + [_I32, _I32] + [_PTR] * 2,
+}
+
+
+def cache_key() -> str:
+    """Hash of the nvcc flags and every source: the library's name."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError(
+            "CUDA tensors need the port's kernels, and no CUDA toolkit "
+            "(nvcc) was found to build them: set CUDA_HOME")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build_library() -> tuple[Path, float, str]:
+    """Compile every source unless a library with the same cache key
+    exists. Returns (path, build seconds, nvcc log)."""
+    out = BUILD_DIR / f"kernels-{cache_key()}.so"
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                               *map(str, SOURCES)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's argument types set."""
+    path, _, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I32
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name``; raise if the launch was refused."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed with cudaError "
+                           f"{err}")

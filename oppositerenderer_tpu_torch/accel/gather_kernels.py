@@ -1,0 +1,246 @@
+"""Tile-shared photon gather: the counterpart of
+``oppositerenderer_tpu/accel/pallas_gather.py``.
+
+Queries come in tiles of ``TILE`` = 256 consecutive entries, each a 16x16
+pixel block (:func:`tile_block_order`). Per tile, :func:`_tile_tables`
+(plain torch) takes the union of the queries' cell boxes, enumerates up
+to 8x8 of its (y,z) grid rows (stride-sampled beyond 8 per axis) and cuts
+each row, one contiguous interval of the cell-sorted photon arrays, to one
+random block of ``CHUNK`` photons; every slot carries the inverse of its
+inclusion probability as a weight, so the estimate stays unbiased.
+
+``gather_photons_tiled`` then sums, for every query, the Jensen-weighted
+power of the photons of its tile's slots: the hand-written kernel of
+``csrc/gather.cu`` for CUDA tensors (built and loaded by ``cuda_build``),
+``gather_photons_tiled_plain`` for CPU tensors. The wrapper counts its
+kernel launches in a ``launches`` attribute. The TPU kernel's Mosaic
+layout workarounds (the transposed ``[16, P_pad]`` photon packing with
+its 128-aligned window, the static unroll) are not ported: the kernel
+reads the grid's own ``[P, 3]`` arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
+                          PhotonGrid, ceil_div)
+from .cuda_build import launch
+
+TILE = 256          # queries per tile
+BLOCK = 16          # square image block edge (BLOCK^2 == TILE)
+ROWS_Y = 8          # (y,z) row slot grid per tile
+ROWS_Z = 8
+ROWS = ROWS_Y * ROWS_Z
+CHUNK = 256         # photons per row slot
+
+# [tiles, TILE, ROWS * CHUNK] elements the plain version materialises at once
+PLAIN_ELEMENT_BUDGET = 1 << 23
+
+
+def tile_block_order(width: int, height: int) -> tuple[np.ndarray,
+                                                       np.ndarray]:
+    """(perm, inv_perm) int32 [H*W] mapping raster order to 16x16 image
+    blocks: a block is a compact surface patch, the coherence the tile
+    gather feeds on, where 256 consecutive raster pixels span half a row."""
+    if width % BLOCK or height % BLOCK:
+        raise ValueError(f"{width}x{height} does not split into "
+                         f"{BLOCK}x{BLOCK} blocks")
+    idx = np.arange(height * width, dtype=np.int32).reshape(height, width)
+    perm = (idx.reshape(height // BLOCK, BLOCK, width // BLOCK, BLOCK)
+            .transpose(0, 2, 1, 3).reshape(-1))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return perm, inv
+
+
+def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
+                 u_row: torch.Tensor, valid: torch.Tensor | None = None):
+    """Per-tile slot tables (pallas_gather.py:107-177).
+
+    ``u_row`` [n_tiles, ROWS + 2] uniforms drive the subsampling (the y/z
+    stride offsets, then one chunk pick per slot). ``valid`` masks queries
+    out of the tile's box union; an all-invalid tile gets empty slots.
+
+    Returns (starts, lens) int32 and weights f32, each [n_tiles, ROWS],
+    and per tile the photons visited and the photons in the (weighted)
+    box union, int32 [n_tiles].
+    """
+    res = grid.resolution
+    n = position.shape[0]
+    n_tiles = n // TILE
+    dev = position.device
+    r = torch.broadcast_to(torch.as_tensor(radius, dtype=torch.float32,
+                                           device=dev), (n,))
+    npos = position - grid.origin
+    inv = 1.0 / grid.cell_size
+    lo = torch.clamp(torch.floor((npos - r[:, None]) * inv), 0,
+                     res - 1).to(torch.int32)
+    hi = torch.clamp(torch.floor((npos + r[:, None]) * inv), 0,
+                     res - 1).to(torch.int32)
+    if valid is not None:
+        lo = torch.where(valid[:, None], lo, res)   # min ignores invalid
+        hi = torch.where(valid[:, None], hi, -1)    # max ignores invalid
+    lo_t = torch.amin(lo.reshape(n_tiles, TILE, 3), dim=1)    # [Tt,3]
+    hi_t = torch.amax(hi.reshape(n_tiles, TILE, 3), dim=1)
+
+    def axis_rows(axis, slots, u):
+        span = hi_t[:, axis] - lo_t[:, axis] + 1
+        stride = torch.clamp_min(ceil_div(span, slots), 1)
+        off = torch.minimum((u * stride.to(torch.float32)).to(torch.int32),
+                            stride - 1)
+        ks = torch.arange(slots, dtype=torch.int32, device=dev)
+        vals = (lo_t[:, axis, None] + off[:, None]
+                + ks[None, :] * stride[:, None])            # [Tt, slots]
+        return vals, vals <= hi_t[:, axis, None], stride
+
+    ys, ok_y, stride_y = axis_rows(1, ROWS_Y, u_row[:, 0])
+    zs, ok_z, stride_z = axis_rows(2, ROWS_Z, u_row[:, 1])
+    y = torch.repeat_interleave(ys, ROWS_Z, dim=1)           # [Tt, ROWS]
+    oky = torch.repeat_interleave(ok_y, ROWS_Z, dim=1)
+    z = zs.repeat(1, ROWS_Y)
+    okz = ok_z.repeat(1, ROWS_Y)
+    ok = oky & okz
+    w_row = (stride_y * stride_z).to(torch.float32)[:, None]  # [Tt,1]
+
+    offsets = grid.offsets.long()
+    cfrom = lo_t[:, 0, None] + y * res + z * res * res
+    cto = hi_t[:, 0, None] + y * res + z * res * res
+    start = offsets[torch.where(ok, cfrom, 0).long()].to(torch.int32)
+    end = offsets[torch.where(ok, cto, 0).long() + 1].to(torch.int32)
+    ln = torch.where(ok, end - start, 0)                     # [Tt, ROWS]
+
+    # rows longer than CHUNK: one random CHUNK-block, weight = #blocks
+    n_blocks = torch.clamp_min(ceil_div(ln, CHUNK), 1)
+    u_blk = u_row[:, 2:2 + ROWS]
+    blk = torch.minimum((u_blk * n_blocks.to(torch.float32)).to(torch.int32),
+                        n_blocks - 1)
+    start_s = start + blk * CHUNK
+    ln_s = torch.clamp(ln - blk * CHUNK, 0, CHUNK)
+    weight = torch.where(ok, w_row * n_blocks.to(torch.float32), 0.0)
+    visited = torch.sum(ln_s, dim=1, dtype=torch.int32)
+    total = torch.sum(torch.where(ok, ln, 0) * w_row.to(torch.int32), dim=1,
+                      dtype=torch.int32)
+    return start_s, ln_s, weight, visited, total
+
+
+def gather_photons_tiled_plain(starts, lens, weights, r2, qpos, qnormal,
+                               ppos, ppow, pdir, check_normal: bool = True):
+    """Plain PyTorch version of the kernel's contract. For each tile, the
+    windows ``[start, start + len)`` of its ROWS slots against its TILE
+    queries: d^2 summed per axis (never as q^2 + p^2 - 2 q.p, which cancels
+    catastrophically at scene scale, pallas_gather.py:37-44), the pair
+    kept if d^2 <= r2 and, with ``check_normal``, n.dir <= 0, weighted by
+    the Jensen gaussian times the slot weight; returns sum w * power
+    [N, 3]. Tiles go in chunks that bound the [tiles, TILE, ROWS * CHUNK]
+    intermediates."""
+    n_tiles = starts.shape[0]
+    dev = qpos.device
+    out = torch.zeros((n_tiles * TILE, 3), dtype=torch.float32, device=dev)
+    if ppos.shape[0] == 0:
+        return out
+    ct = max(1, PLAIN_ELEMENT_BUDGET // (TILE * ROWS * CHUNK))
+    r2 = torch.as_tensor(r2, dtype=torch.float32, device=dev)
+    denom = 1.0 - GAUSS_EXP_NEG_BETA
+    j = torch.arange(CHUNK, dtype=torch.int32, device=dev)
+    for t0 in range(0, n_tiles, ct):
+        t1 = min(n_tiles, t0 + ct)
+        m = j < lens[t0:t1, :, None]                         # [c, ROWS, C]
+        idx = torch.where(m, starts[t0:t1, :, None] + j, 0).long()
+        idx = idx.reshape(t1 - t0, 1, ROWS * CHUNK)
+        m = m.reshape(t1 - t0, 1, ROWS * CHUNK)
+        p = ppos[idx]                                        # [c, 1, K, 3]
+        q = qpos[t0 * TILE:t1 * TILE].reshape(t1 - t0, TILE, 1, 3)
+        dx = q[..., 0] - p[..., 0]                           # [c, TILE, K]
+        dy = q[..., 1] - p[..., 1]
+        dz = q[..., 2] - p[..., 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        ok = m & (d2 <= r2)
+        if check_normal:
+            pd = pdir[idx]
+            qn = qnormal[t0 * TILE:t1 * TILE].reshape(t1 - t0, TILE, 1, 3)
+            ndp = (qn[..., 0] * pd[..., 0] + qn[..., 1] * pd[..., 1]
+                   + qn[..., 2] * pd[..., 2])
+            ok = ok & (ndp <= 0.0)
+        expf = torch.exp(-GAUSS_BETA * d2 / (2.0 * r2))
+        w = GAUSS_ALPHA * (1.0 - (1.0 - expf) / denom)
+        w_s = torch.repeat_interleave(weights[t0:t1], CHUNK, dim=1)
+        contrib = torch.where(ok, w, 0.0) * w_s[:, None, :]
+        out[t0 * TILE:t1 * TILE] = torch.bmm(
+            contrib, ppow[idx[:, 0]]).reshape(-1, 3)
+    return out
+
+
+def _check_gather(starts, lens, weights, r2, qpos, qnormal, ppos, ppow,
+                  pdir):
+    n_tiles, n, n_p = starts.shape[0], qpos.shape[0], ppos.shape[0]
+    for name, a, shape, dtype in (
+            ("starts", starts, (n_tiles, ROWS), torch.int32),
+            ("lens", lens, (n_tiles, ROWS), torch.int32),
+            ("weights", weights, (n_tiles, ROWS), torch.float32),
+            ("r2", r2, (), torch.float32),
+            ("qpos", qpos, (n_tiles * TILE, 3), torch.float32),
+            ("qnormal", qnormal, (n, 3), torch.float32),
+            ("ppos", ppos, (n_p, 3), torch.float32),
+            ("ppow", ppow, (n_p, 3), torch.float32),
+            ("pdir", pdir, (n_p, 3), torch.float32)):
+        if a.device != qpos.device:
+            raise ValueError(f"{name} is on {a.device}, qpos on "
+                             f"{qpos.device}")
+        if a.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {a.dtype}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def gather_photons_tiled_kernel(starts, lens, weights, r2, qpos, qnormal,
+                                ppos, ppow, pdir, check_normal: bool = True):
+    """The kernel on CUDA tensors, with the plain version's contract."""
+    _check_gather(starts, lens, weights, r2, qpos, qnormal, ppos, ppow, pdir)
+    out = torch.empty_like(qpos)
+    if starts.shape[0] == 0:
+        return out
+    with torch.cuda.device(qpos.device):
+        launch("gather_photons_tiled", starts.data_ptr(), lens.data_ptr(),
+               weights.data_ptr(), r2.data_ptr(), qpos.data_ptr(),
+               qnormal.data_ptr(), ppos.data_ptr(), ppow.data_ptr(),
+               pdir.data_ptr(), starts.shape[0], int(bool(check_normal)),
+               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    gather_photons_tiled.launches += 1
+    return out
+
+
+def gather_photons_tiled(grid: PhotonGrid, position: torch.Tensor,
+                         normal: torch.Tensor, radius, *,
+                         u_rows: torch.Tensor, check_normal: bool = True,
+                         valid: torch.Tensor | None = None):
+    """Tile-shared photon gather (pallas_gather.py:275-344).
+    ``position``/``normal`` are [N,3], N a multiple of TILE, in tile order
+    (:func:`tile_block_order`); ``u_rows`` is [N // TILE, ROWS + 2]
+    uniforms. Returns (accum_power [N,3], stats): the estimator and stats
+    of ``photon_map.gather_photons``, with per-query stats being the
+    owning tile's counts. The kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    n = position.shape[0]
+    if n % TILE:
+        raise ValueError(f"{n} queries are not a multiple of {TILE}")
+    starts, lens, weights, visited, total = _tile_tables(
+        grid, position, radius, u_rows, valid=valid)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=position.device)
+    args = (starts, lens, weights, torch.square(r), position, normal,
+            grid.position, grid.power, grid.direction, check_normal)
+    if position.device.type == "cpu":
+        accum = gather_photons_tiled_plain(*args)
+    else:
+        accum = gather_photons_tiled_kernel(*args)
+    stats = dict(
+        photons_visited=torch.repeat_interleave(visited, TILE),
+        photon_subsampled=torch.repeat_interleave(
+            torch.clamp_min(total - visited, 0), TILE))
+    return accum, stats
+
+
+gather_photons_tiled.launches = 0

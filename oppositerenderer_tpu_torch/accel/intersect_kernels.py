@@ -3,98 +3,27 @@
 
 ``closest_hit_tris`` and ``occluded_tris`` keep the JAX functions' public
 contract and layout (``tri9`` is ``[9, T]``: rows v0, e1, e2). For CUDA
-tensors they launch the hand-written kernels of ``csrc/intersect.cu``,
-built with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` inside the
-package and loaded with ctypes; without ``nvcc`` a CUDA call raises. For
-CPU tensors they run the plain PyTorch versions of the same function,
-``closest_hit_tris_plain`` and ``occluded_tris_plain``. Each wrapper
-counts its kernel launches in a ``launches`` attribute.
+tensors they launch the hand-written kernels of ``csrc/intersect.cu``
+(built and loaded by ``cuda_build``; without ``nvcc`` a CUDA call
+raises). For CPU tensors they run the plain PyTorch versions of the same
+function, ``closest_hit_tris_plain`` and ``occluded_tris_plain``. Each
+wrapper counts its kernel launches in a ``launches`` attribute.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-
 import torch
+
+from .cuda_build import launch
 
 BIG = 1e30
 
 # rays x triangles elements the plain versions materialise at once
 CHUNK_ELEMENT_BUDGET = 1 << 25
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "intersect.cu",)
-BUILD_DIR = _PKG / "_build"
-# --fmad=false: no multiply-add contraction, so the kernels round exactly
-# as the plain versions do and agree with them bit for bit
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
 
 def _auto_chunk(n_prims: int) -> int:
     """Rays per chunk of the plain versions' [chunk, T] intermediates."""
     return int(min(16384, max(1024, CHUNK_ELEMENT_BUDGET // max(n_prims, 1))))
-
-
-# ---------------------------------------------------------------------------
-# build and load
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError(
-            "CUDA tensors need the intersection kernels, and no CUDA "
-            "toolkit (nvcc) was found to build them: set CUDA_HOME")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_library() -> tuple[Path, float, str]:
-    """Compile ``csrc/intersect.cu`` unless a library built from the same
-    sources and flags exists. Returns (path, build seconds, nvcc log)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"intersect-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # build under a temporary name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               *map(str, SOURCES)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.closest_hit_tris.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 5
-    lib.closest_hit_tris.restype = i32
-    lib.occluded_tris.argtypes = [ptr] * 6 + [i32, i32] + [ptr] * 2
-    lib.occluded_tris.restype = i32
-    return lib
 
 
 def _check_rays(o, d, tmin, tmax, tri9):
@@ -111,12 +40,6 @@ def _check_rays(o, d, tmin, tmax, tri9):
                              f"{tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"CUDA launch failed with cudaError {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -195,12 +118,11 @@ def closest_hit_tris(o, d, tmin, tmax, tri9, chunk_size=None):
     v = torch.empty_like(t)
     if n == 0:
         return t, idx, u, v
-    lib = _library()
     with torch.cuda.device(o.device):
-        _launch(lib.closest_hit_tris, o.data_ptr(), d.data_ptr(),
-                tmin.data_ptr(), tmax.data_ptr(), tri9.data_ptr(), n, n_tris,
-                t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        launch("closest_hit_tris", o.data_ptr(), d.data_ptr(),
+               tmin.data_ptr(), tmax.data_ptr(), tri9.data_ptr(), n, n_tris,
+               t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
     closest_hit_tris.launches += 1
     return t, idx, u, v
 
@@ -245,12 +167,11 @@ def occluded_tris(o, d, tmin, tmax, tri9, occluder_mask, chunk_size=None):
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     if n == 0:
         return occ
-    lib = _library()
     with torch.cuda.device(o.device):
-        _launch(lib.occluded_tris, o.data_ptr(), d.data_ptr(),
-                tmin.data_ptr(), tmax.data_ptr(), tri9.data_ptr(),
-                occluder_mask.data_ptr(), n, n_tris, occ.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        launch("occluded_tris", o.data_ptr(), d.data_ptr(),
+               tmin.data_ptr(), tmax.data_ptr(), tri9.data_ptr(),
+               occluder_mask.data_ptr(), n, n_tris, occ.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
     occluded_tris.launches += 1
     return occ
 

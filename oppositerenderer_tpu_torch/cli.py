@@ -1,11 +1,11 @@
-"""Command-line path tracer — the Standalone application analog.
+"""Command-line renderer — the Standalone application analog.
 
 The counterpart of ``oppositerenderer_tpu/cli.py`` with its flags: pick a
 scene, render iterations, write a preview every few iterations, print a
 stats line per iteration, checkpoint and resume. The port renders path
-tracing for now; ``--method ppm|vcm`` and ``--serve`` (the live viewer)
-exit with an error until those slices arrive. There is no ``--pallas``:
-the device decides whether the CUDA kernels run.
+tracing and progressive photon mapping; ``--method vcm`` and ``--serve``
+(the live viewer) exit with an error until those slices arrive. There is
+no ``--pallas``: the device decides whether the CUDA kernels run.
 
 Usage:
   python -m oppositerenderer_tpu_torch.cli --scene CornellSmall --method pt \
@@ -25,11 +25,11 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="opposite-torch",
-        description="Progressive path tracer on PyTorch/CUDA")
+        description="Progressive renderer on PyTorch/CUDA")
     p.add_argument("--scene", default="CornellSmall",
                    help="built-in Cornell scene name")
     p.add_argument("--method", default="pt", choices=["pt", "ppm", "vcm"],
-                   help="render method (only pt is ported)")
+                   help="render method (pt and ppm are ported)")
     p.add_argument("--size", type=int, default=512,
                    help="square output resolution")
     p.add_argument("--width", type=int, default=None)
@@ -76,9 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.method != "pt":
-        p.error(f"--method {args.method} is not yet ported to PyTorch "
-                "(path tracing only); use the JAX package's CLI")
+    if args.method == "vcm":
+        p.error("--method vcm is not yet ported to PyTorch (pt and ppm "
+                "are); use the JAX package's CLI")
     if args.serve is not None:
         p.error("--serve (the live viewer) is not yet ported to PyTorch")
     if args.list_devices:
@@ -89,7 +89,7 @@ def main(argv=None) -> int:
         return 0
 
     from .camera import Camera
-    from .config import RenderConfig
+    from .config import RenderConfig, RenderMethod
     from .film import save_png, save_tga
     from .renderer import Renderer
     from .scene import get_scene_by_name
@@ -101,8 +101,10 @@ def main(argv=None) -> int:
     else:
         p.error("no CUDA device: pass --cpu to render with plain PyTorch")
 
+    method = {"pt": RenderMethod.PATH_TRACING,
+              "ppm": RenderMethod.PROGRESSIVE_PHOTON_MAPPING}[args.method]
     cfg = RenderConfig(width=args.width or args.size,
-                       height=args.height or args.size,
+                       height=args.height or args.size, render_method=method,
                        photons_per_iteration=args.photons, gamma=args.gamma)
     t0 = time.perf_counter()
     scene, camera = get_scene_by_name(args.scene, device)
@@ -141,8 +143,10 @@ def main(argv=None) -> int:
         while r.iteration < target:
             m = r.render_next_iteration()
             if not args.quiet:
+                extra = "".join(f" {k}={v:.3g}" for k, v in m.items()
+                                if k in ("photons_stored", "ppm_radius"))
                 print(f"iter {m['iteration']:4d}  "
-                      f"{m['iteration_seconds'] * 1e3:7.1f} ms")
+                      f"{m['iteration_seconds'] * 1e3:7.1f} ms{extra}")
             if args.preview_every and r.iteration % args.preview_every == 0:
                 save(r.film, args.output, gamma=args.gamma)
     if args.profile:

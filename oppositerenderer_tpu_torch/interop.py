@@ -1,4 +1,4 @@
-"""Scene, camera and key records from the JAX package's leaves.
+"""Scene, camera, key and photon records from the JAX package's leaves.
 
 The JAX package's records are trees of arrays. Handed over as numpy
 arrays, with the port's field names (a nested mapping, e.g. from
@@ -16,10 +16,14 @@ import torch
 from .camera import Camera
 from .core.rng import Key
 from .lights import LIGHT_FIELDS, LightTable
+from .photon_map import PhotonBatch, PhotonGrid
 from .scene.types import MATERIAL_FIELDS, Geometry, MaterialTable, Scene
 
 GEOMETRY_FIELDS = tuple(Geometry.__dataclass_fields__)
 CAMERA_FIELDS = ("eye", "lookdir", "up", "camera_u", "camera_v", "aperture")
+PHOTON_BATCH_FIELDS = tuple(PhotonBatch.__dataclass_fields__)
+PHOTON_GRID_ARRAYS = ("position", "power", "direction", "offsets", "origin",
+                      "cell_size", "n_valid")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -71,3 +75,18 @@ def key_from_numpy(words) -> Key:
     if w.shape != (2,):
         raise ValueError(f"a key has two 32-bit words, got {w.shape[0]}")
     return int(w[0]), int(w[1])
+
+
+def photon_batch_from_numpy(leaves: Mapping,
+                            device: torch.device | str = "cpu"
+                            ) -> PhotonBatch:
+    """``leaves`` maps ``position``/``power``/``direction`` [P,3] and
+    ``valid`` [P] (a JAX ``PhotonBatch``'s fields)."""
+    return PhotonBatch(**_tensors(leaves, PHOTON_BATCH_FIELDS, device))
+
+
+def photon_grid_from_numpy(leaves: Mapping,
+                           device: torch.device | str = "cpu") -> PhotonGrid:
+    """``leaves`` maps a JAX ``PhotonGrid``'s arrays and ``resolution``."""
+    return PhotonGrid(**_tensors(leaves, PHOTON_GRID_ARRAYS, device),
+                      resolution=int(leaves["resolution"]))

@@ -1,0 +1,244 @@
+"""Photon map: sorted uniform grid build and fixed-budget gather.
+
+The counterpart of the sorted-grid half of ``oppositerenderer_tpu/photon_map.py``
+(the reference's ``renderer/OptixRenderer_SpatialHash.cu:209-283`` build
+and ``ppm/IndirectRadianceEstimation.cu:69-237`` gather):
+
+* build: masked AABB -> cell ids -> a STABLE sort by cell id (JAX's
+  ``lax.sort`` is stable, so the port's grid is bit-identical to JAX's
+  for the same photons) -> ``searchsorted`` offsets;
+* gather: per query, the (y,z) rows of the cell box, each one contiguous
+  x-interval of the sorted arrays, flattened into a fixed budget of
+  entries with unbiased stride subsampling when the box is over budget.
+
+The budgeted gather is PPM's path when the image does not split into
+16x16 blocks; otherwise ``accel/gather_kernels.gather_photons_tiled``
+runs. The stochastic hash and the CPU kd-tree arrive with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .core.math import Tensor, dot
+
+BIG = 1e30
+
+
+@dataclasses.dataclass
+class PhotonBatch:
+    """SoA photons (ppm/Photon.h:9-34). Fixed capacity, masked validity."""
+
+    position: Tensor   # [P,3]
+    power: Tensor      # [P,3]
+    direction: Tensor  # [P,3] incident ray direction at deposit
+    valid: Tensor      # [P] bool
+
+
+@dataclasses.dataclass
+class PhotonGrid:
+    """Sorted uniform grid over a PhotonBatch (invalid photons last)."""
+
+    position: Tensor   # [P,3]
+    power: Tensor      # [P,3]
+    direction: Tensor  # [P,3]
+    offsets: Tensor    # [R^3+1] int32 prefix offsets into the sorted arrays
+    origin: Tensor     # [3] grid world origin
+    cell_size: Tensor  # [] scalar
+    resolution: int
+    n_valid: Tensor    # [] int32
+
+
+def cell_coords(p: Tensor, origin: Tensor, cell_size: Tensor,
+                resolution: int) -> Tensor:
+    """Integer cell coords [...,3] (int32), clipped to the grid."""
+    c = torch.floor((p - origin) / cell_size).to(torch.int32)
+    return torch.clamp(c, 0, resolution - 1)
+
+
+def cell_index_1d(c: Tensor, resolution: int) -> Tensor:
+    """x-major linearization (x runs fastest), matching the reference's
+    x-contiguous interval scan."""
+    return (c[..., 0] + c[..., 1] * resolution
+            + c[..., 2] * resolution * resolution)
+
+
+def min_cell_size_for_window(radius: Tensor, max_cells_per_axis: int
+                             ) -> Tensor:
+    """Smallest cell size for which a [p-r, p+r] box spans at most
+    ``max_cells_per_axis`` cells per axis (floor(2r/cs)+2 in the worst
+    alignment), so the gather's fixed cell window covers the whole sphere."""
+    return (2.0 * radius / (max_cells_per_axis - 1)) * (1.0 + 1e-5)
+
+
+def photon_grid_geometry(photons: PhotonBatch, resolution: int,
+                         min_cell_size: Tensor | None = None
+                         ) -> tuple[Tensor, Tensor]:
+    """(origin, cell_size) of the uniform grid over the photons' masked
+    AABB, with an optional cell-size floor."""
+    p = photons.position
+    v = photons.valid[:, None]
+    pmin = torch.amin(torch.where(v, p, BIG), dim=0)
+    pmax = torch.amax(torch.where(v, p, -BIG), dim=0)
+    any_valid = torch.any(photons.valid)
+    pmin = torch.where(any_valid, pmin, 0.0)
+    pmax = torch.where(any_valid, pmax, 1.0)
+    extent = torch.clamp_min(pmax - pmin, 1e-6)
+    cell_size = torch.amax(extent) / resolution
+    if min_cell_size is not None:
+        cell_size = torch.maximum(cell_size, torch.as_tensor(
+            min_cell_size, dtype=cell_size.dtype, device=cell_size.device))
+    return pmin, cell_size
+
+
+def build_photon_grid(photons: PhotonBatch, resolution: int,
+                      min_cell_size: Tensor | None = None) -> PhotonGrid:
+    """createUniformGridPhotonMap (OptixRenderer_SpatialHash.cu:209-283).
+
+    ``min_cell_size`` floors the cell size: pass
+    :func:`min_cell_size_for_window` of the gather radius so the gather's
+    fixed cell window is exact.
+    """
+    origin, cell_size = photon_grid_geometry(photons, resolution,
+                                             min_cell_size)
+    p = photons.position
+    n_cells = resolution ** 3
+    cells = cell_index_1d(cell_coords(p, origin, cell_size, resolution),
+                          resolution)
+    cells = torch.where(photons.valid, cells, n_cells)  # sentinel: last
+    # stable, as jax.lax.sort: equal cells keep the deposit order
+    cells_sorted, order = torch.sort(cells, stable=True)
+    offsets = torch.searchsorted(
+        cells_sorted, torch.arange(n_cells + 1, dtype=cells_sorted.dtype,
+                                   device=p.device))
+    return PhotonGrid(
+        position=p[order], power=photons.power[order],
+        direction=photons.direction[order],
+        offsets=offsets.to(torch.int32), origin=origin, cell_size=cell_size,
+        resolution=resolution,
+        n_valid=torch.sum(photons.valid).to(torch.int32))
+
+
+# Jensen gaussian filter constants (IndirectRadianceEstimation.cu:60-67),
+# shared with the tile gather (accel/gather_kernels.py, csrc/gather.cu).
+# GAUSS_EXP_NEG_BETA is the reference's rounded exp(-beta): kept as is.
+GAUSS_ALPHA = 1.818
+GAUSS_BETA = 1.953
+GAUSS_EXP_NEG_BETA = 0.141847
+
+
+def gaussian_kernel_weight(distance2: Tensor, radius2: Tensor) -> Tensor:
+    """Jensen gaussian filter (IndirectRadianceEstimation.cu:60-67)."""
+    return GAUSS_ALPHA * (
+        1.0 - (1.0 - torch.exp(-GAUSS_BETA * distance2 / (2.0 * radius2)))
+        / (1.0 - GAUSS_EXP_NEG_BETA))
+
+
+def ceil_div(a: Tensor, b: int) -> Tensor:
+    """Integer ceil(a / b), as JAX's ``-(-a // b)``."""
+    return -torch.div(-a, b, rounding_mode="floor")
+
+
+def gather_cell_indices(offsets: Tensor, origin: Tensor, cell_size: Tensor,
+                        resolution: int, position: Tensor, radius, *,
+                        max_cells_per_axis: int = 4, budget_total: int = 256,
+                        u_stride: Tensor | None = None):
+    """Row indices of the (strided) grid entries inside the [p-r, p+r] box
+    of each query (IndirectRadianceEstimation.cu:85-128): each (y,z) row's
+    x-range is one contiguous interval; the intervals are flattened into
+    one fixed budget with unbiased stride subsampling when a box holds
+    more than ``budget_total`` entries.
+
+    Returns (gidx [N,B] int32, gok [N,B] bool, stride [N] int32,
+    total [N] int32).
+    """
+    res = resolution
+    dev = position.device
+    r = torch.broadcast_to(torch.as_tensor(radius, dtype=torch.float32,
+                                           device=dev), position.shape[:-1])
+    npos = position - origin
+    inv_cs = 1.0 / cell_size
+    lo = torch.clamp(torch.floor((npos - r[..., None]) * inv_cs), 0,
+                     res - 1).to(torch.int32)
+    hi = torch.clamp(torch.floor((npos + r[..., None]) * inv_cs), 0,
+                     res - 1).to(torch.int32)
+    offs = offsets.long()
+
+    # phase 1: per-lane (start, len) interval per (y,z) row of the box
+    starts, lens = [], []
+    for dz in range(max_cells_per_axis):
+        z = lo[..., 2] + dz
+        z_ok = z <= hi[..., 2]
+        for dy in range(max_cells_per_axis):
+            y = lo[..., 1] + dy
+            ok = z_ok & (y <= hi[..., 1])
+            cfrom = lo[..., 0] + y * res + z * res * res
+            cto = hi[..., 0] + y * res + z * res * res
+            start = offs[torch.where(ok, cfrom, 0).long()]
+            end = offs[torch.where(ok, cto, 0).long() + 1]
+            starts.append(torch.where(ok, start, 0))
+            lens.append(torch.where(ok, end - start, 0))
+    starts = torch.stack(starts, dim=-1).to(torch.int32)     # [N, R]
+    lens = torch.stack(lens, dim=-1).to(torch.int32)         # [N, R]
+    prefix = torch.cumsum(lens, dim=-1, dtype=torch.int32) - lens
+    total = prefix[..., -1] + lens[..., -1]                  # [N]
+
+    # stride subsampling of over-budget boxes
+    stride = torch.clamp_min(ceil_div(total, budget_total), 1)
+    if u_stride is None:
+        offset = torch.zeros_like(stride)
+    else:
+        offset = torch.minimum((u_stride * stride).to(stride.dtype),
+                               stride - 1)
+
+    # phase 2: flatten the (strided) intervals into one index block
+    ks = torch.arange(budget_total, dtype=torch.int32, device=dev)
+    fk = offset[..., None] + ks * stride[..., None]          # [N, B]
+    shape_k = position.shape[:-1] + (budget_total,)
+    gidx = torch.zeros(shape_k, dtype=torch.int32, device=dev)
+    gok = torch.zeros(shape_k, dtype=torch.bool, device=dev)
+    for rn in range(starts.shape[-1]):
+        off = fk - prefix[..., rn:rn + 1]
+        sel = (off >= 0) & (off < lens[..., rn:rn + 1])
+        gidx = torch.where(sel, starts[..., rn:rn + 1] + off, gidx)
+        gok = gok | sel
+    return gidx, gok, stride, total
+
+
+def gather_photons(grid: PhotonGrid, position: Tensor, normal: Tensor,
+                   radius, *, max_cells_per_axis: int = 4,
+                   budget_total: int = 256, check_normal: bool = True,
+                   u_stride: Tensor | None = None):
+    """Kernel-weighted photon power within ``radius`` of each query [N,3]:
+    the budgeted gather of :func:`gather_cell_indices`, each entry tested
+    for distance and (optionally) normal opposition and weighted by the
+    Jensen gaussian; an over-budget box's sum is scaled by its stride.
+
+    Returns (power [N,3], stats dict of per-query int32 counts).
+    """
+    dev = position.device
+    r = torch.broadcast_to(torch.as_tensor(radius, dtype=torch.float32,
+                                           device=dev), position.shape[:-1])
+    radius2 = r * r
+    gidx, gok, stride, total = gather_cell_indices(
+        grid.offsets, grid.origin, grid.cell_size, grid.resolution,
+        position, radius, max_cells_per_axis=max_cells_per_axis,
+        budget_total=budget_total, u_stride=u_stride)
+    gi = gidx.long()
+    ppos = grid.position[gi]          # [N,B,3]
+    ppow = grid.power[gi]
+    pdir = grid.direction[gi]
+    diff = position[..., None, :] - ppos
+    d2 = dot(diff, diff)
+    ok_p = gok & (d2 <= radius2[..., None])
+    if check_normal:
+        ok_p = ok_p & (dot(-pdir, normal[..., None, :]) >= 0.0)
+    w = gaussian_kernel_weight(d2, radius2[..., None])
+    accum = torch.sum(torch.where(ok_p[..., None], ppow * w[..., None], 0.0),
+                      dim=-2)
+    accum = accum * stride[..., None].to(torch.float32)   # reweight
+    visited = torch.sum(gok, dim=-1, dtype=torch.int32)
+    stats = dict(photons_visited=visited,
+                 photon_subsampled=torch.clamp_min(total - visited, 0))
+    return accum, stats

@@ -92,32 +92,52 @@ class Renderer:
         return ppm_radius_sq_at_iteration(self.ppm_initial_radius,
                                           self.cfg.ppm_alpha, iteration)
 
+    def _iteration(self, iteration: int, radius_sq):
+        """Radiance [H,W,3] + stats of one iteration at the squared PPM
+        radius ``radius_sq``; non-finite radiance is scrubbed to 0, as the
+        film does."""
+        method = self.cfg.render_method
+        if method == RenderMethod.PATH_TRACING:
+            from .integrators import pt
+            radiance = pt.render_iteration(self.scene, self.camera, self.cfg,
+                                           iteration, self.root_key)
+            stats = {}
+        elif method == RenderMethod.PROGRESSIVE_PHOTON_MAPPING:
+            from .integrators import ppm
+            radiance, stats = ppm.render_iteration(
+                self.scene, self.camera, self.cfg, iteration, self.root_key,
+                radius_sq)
+        else:
+            raise NotImplementedError(
+                f"{method.name}: the port renders PATH_TRACING and "
+                "PROGRESSIVE_PHOTON_MAPPING; VCM arrives with a later slice")
+        return torch.where(torch.isfinite(radiance), radiance, 0.0), stats
+
     def compute_iteration(self, iteration: int):
         """Radiance [H,W,3] + stats for one GLOBAL iteration number without
         touching the film (the unit of work a distributed worker renders).
-        Non-finite radiance is scrubbed to 0, as the film does."""
-        method = self.cfg.render_method
-        if method != RenderMethod.PATH_TRACING:
-            raise NotImplementedError(
-                f"{method.name}: the port renders PATH_TRACING; PPM and VCM "
-                "arrive with later slices")
-        from .integrators import pt
-        radiance = pt.render_iteration(self.scene, self.camera, self.cfg,
-                                       iteration, self.root_key)
-        return torch.where(torch.isfinite(radiance), radiance, 0.0), {}
+        The PPM radius is the schedule evaluated from scratch
+        (``ppm_radius_sq_at_iteration``), as the JAX package's
+        ``compute_iteration`` takes it."""
+        return self._iteration(iteration, self._radius_sq(iteration))
 
     def compute_iterations(self, start: int, n: int, stride: int = 1):
         """Radiance SUM + summed stats over iterations ``start,
-        start+stride, ..., start+(n-1)*stride``."""
+        start+stride, ..., start+(n-1)*stride``. The PPM radius of each is
+        the float32 closed form (``ppm_radius_sq_traced``), as in the JAX
+        package's fused multi-iteration loop."""
         acc = torch.zeros((self.cfg.height, self.cfg.width, 3),
                           dtype=torch.float32, device=self.device)
-        stats_sum: dict[str, float] = {}
+        stats_sum: dict[str, torch.Tensor] = {}
         for k in range(n):
-            rad, stats = self.compute_iteration(start + k * stride)
+            it = start + k * stride
+            rad, stats = self._iteration(it, ppm_radius_sq_traced(
+                self.ppm_initial_radius, self.cfg.ppm_alpha, it))
             acc = acc + rad
             for key, v in stats.items():
-                stats_sum[key] = stats_sum.get(key, 0.0) + float(v)
-        return acc, stats_sum
+                v = v.to(torch.float32)
+                stats_sum[key] = stats_sum[key] + v if key in stats_sum else v
+        return acc, {k: float(v) for k, v in stats_sum.items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -129,6 +149,7 @@ class Renderer:
         t0 = time.perf_counter()
         radius_sq = self._radius_sq(self.iteration)
         radiance, stats = self.compute_iteration(self.iteration)
+        stats = {k: float(v) for k, v in stats.items()}
         self.film = self.film.add_iteration(radiance)
         self._sync()
         dt = time.perf_counter() - t0

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.math import Tensor
+from ..core.math import Tensor, length
 from ..lights import LightTable
 
 # material kinds (reference material/ host classes)
@@ -45,6 +45,11 @@ class MaterialTable:
         """Per-lane material rows."""
         return MaterialTable(**{f: getattr(self, f)[idx]
                                 for f in MATERIAL_FIELDS})
+
+    def bsdf_coefficients(self, idx: Tensor):
+        """BSDF component coefficients for per-lane material ids ``idx``:
+        ``row(idx).coefficients()``."""
+        return self.row(idx).coefficients()
 
     def coefficients(self):
         """BSDF component coefficients of (per-lane) rows — each material's
@@ -119,6 +124,13 @@ class Scene:
     @property
     def has_textures(self) -> bool:
         return self.textures is not None and self.textures.shape[0] > 0
+
+    @property
+    def bounding_sphere(self) -> tuple[Tensor, Tensor]:
+        """(center, radius) of the scene AABB's bounding sphere (the
+        distant point light's disc mode of ``ppm.emit_photons``)."""
+        c = 0.5 * (self.aabb_min + self.aabb_max)
+        return c, length(self.aabb_max - c)
 
     def initial_ppm_radius_estimate(self) -> float:
         """IScene::getSceneInitialPPMRadiusEstimate (IScene.cpp:23-31):

@@ -7,18 +7,29 @@ Run them on such a machine with
 
 (``--noconftest``: the suite's conftest imports JAX, which these tests do
 not need.)
-The library is built with --fmad=false, so kernel and plain version must
-agree bit for bit.
+The library is built with --fmad=false, so the intersection kernels and
+their plain versions must agree bit for bit. The gather kernel (B3) sums
+the same terms as its plain version in another order: rtol 1e-4 plus
+atol 1e-6 * max|ref|, with equal stats.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from oppositerenderer_tpu_torch.accel import gather_kernels as gk  # noqa
 from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-from oppositerenderer_tpu_torch.accel.intersect import occluder_mask
-from oppositerenderer_tpu_torch.renderer import Renderer
-from oppositerenderer_tpu_torch.config import RenderConfig
-from oppositerenderer_tpu_torch.scene import get_scene_by_name
+from oppositerenderer_tpu_torch.accel.intersect import \
+    occluder_mask  # noqa: E402
+from oppositerenderer_tpu_torch.config import (RenderConfig,  # noqa: E402
+                                               RenderMethod)
+from oppositerenderer_tpu_torch.renderer import Renderer  # noqa: E402
+from oppositerenderer_tpu_torch.scene import get_scene_by_name  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +38,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain gather: fp32
     return torch.device("cuda", 0)
 
 
@@ -78,5 +90,54 @@ def test_render_on_the_card_matches_the_cpu_render(cuda):
         scene, cam = get_scene_by_name("CornellSmall", dev)
         imgs.append(Renderer(scene, cam, cfg, seed=1).render(
             2).mean_radiance().cpu().numpy())
+    assert np.isfinite(imgs[1]).all()
+    assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
+
+
+@pytest.mark.parametrize("case", ["synthetic", "no_normal", "clustered"])
+def test_gather_kernel_matches_plain_version(cuda, case):
+    cluster = case == "clustered"
+    grid, q, qn, r = chip_smoke.gather_case(
+        cuda, n_photons=8192 if cluster else 4096, cluster=cluster,
+        radius=0.2 if cluster else 0.12)
+    u = torch.rand((2, gk.ROWS + 2), generator=torch.Generator().manual_seed(
+        5)).to(cuda) if cluster else torch.zeros((2, gk.ROWS + 2),
+                                                  device=cuda)
+    before = gk.gather_photons_tiled.launches
+    got, gst = gk.gather_photons_tiled(grid, q, qn, r, u_rows=u,
+                                       check_normal=case != "no_normal")
+    assert gk.gather_photons_tiled.launches == before + 1
+    cpu = chip_smoke._on_cpu(grid)
+    want, wst = gk.gather_photons_tiled(cpu, q.cpu(), qn.cpu(), r,
+                                        u_rows=u.cpu(),
+                                        check_normal=case != "no_normal")
+    for k in wst:
+        assert torch.equal(gst[k].cpu(), wst[k])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=chip_smoke.GATHER_RTOL,
+                               atol=chip_smoke.GATHER_ATOL_REL
+                               * float(want.abs().max()))
+    assert (int(gst["photon_subsampled"].sum()) > 0) == cluster
+
+
+def test_ppm_launch_counts_and_cpu_agreement(cuda):
+    cfg = RenderConfig(width=32, height=32, photons_per_iteration=1 << 12,
+                       photon_grid_resolution=16,
+                       render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING)
+    imgs = []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        r = Renderer(scene, cam, cfg, seed=1)
+        counts = [ik.closest_hit_tris.launches, ik.occluded_tris.launches,
+                  gk.gather_photons_tiled.launches]
+        imgs.append(r.render(2).mean_radiance().cpu().numpy())
+        counts = [w.launches - c for w, c in zip(
+            (ik.closest_hit_tris, ik.occluded_tris,
+             gk.gather_photons_tiled), counts)]
+        if dev == "cpu":
+            assert counts == [0, 0, 0]
+    assert counts == [2 * (cfg.max_radiance_trace_depth
+                           + cfg.max_photon_trace_depth),
+                      2 * cfg.ppm_direct_shadow_samples, 2]
     assert np.isfinite(imgs[1]).all()
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)

@@ -157,8 +157,9 @@ def test_config_validation_and_later_slices():
     with pytest.raises(ValueError):
         RenderConfig(pt_shadow_samples=-1)
     assert RenderConfig(pt_direct_light_sampling=False).pt_max_segments == 10
-    r = small_renderer(render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING)
-    with pytest.raises(NotImplementedError, match="PPM and VCM"):
+    r = small_renderer(
+        render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING)
+    with pytest.raises(NotImplementedError, match="VCM arrives"):
         r.render(1)
 
 
@@ -174,5 +175,5 @@ def test_cli_renders_checkpoints_and_resumes(tmp_path, capsys):
                      str(tmp_path / "y.tga")]) == 0
     assert (tmp_path / "y.tga").stat().st_size == 18 + 8 * 8 * 3
     with pytest.raises(SystemExit) as e:
-        cli.main(["--method", "ppm"])
+        cli.main(["--method", "vcm"])
     assert e.value.code == 2
