@@ -9,9 +9,10 @@ and the script exits non-zero without printing the result line:
 
 1. device      - a CUDA device must be present; prints its name, the torch
                  and CUDA versions and ``nvidia-smi``'s name and power limit.
-2. build       - one nvcc call compiles ``csrc/intersect.cu`` and
-                 ``csrc/gather.cu`` for sm_90a into one library; prints its
-                 cache key, the build time and ptxas' registers and spills.
+2. build       - one nvcc call compiles ``csrc/intersect.cu``,
+                 ``csrc/gather.cu`` and ``csrc/vm.cu`` for sm_90a into one
+                 library; prints its cache key, the build time and ptxas'
+                 registers and spills.
 3. kernels     - each kernel against its plain PyTorch version on the same
                  CUDA tensors. B1 and B2 (random rays from a numpy seed, at
                  the PT path's shape and beyond) must be equal bit for bit
@@ -21,7 +22,13 @@ and the script exits non-zero without printing the result line:
                  random u_rows (row and chunk subsampling), and the grid and
                  hitpoints of one CornellSmall 512^2 PPM iteration with 1<<20
                  photons; stats equal, sums within rtol 1e-4 + 1e-6 max|ref|.
-                 Times kernels and plain versions with CUDA events.
+                 B4 on three inputs: the synthetic case of
+                 tests/test_vcm_vm.py, its clustered variant with random
+                 u_rows, and the vertex grid and second-bounce camera
+                 vertices of one CornellSmall 512^2 VCM+VM iteration; query
+                 order and slot tables equal to the CPU's, both sums within
+                 rtol 1e-4 + 1e-6 max|ref|. Times kernels and plain versions
+                 with CUDA events.
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -36,9 +43,20 @@ and the script exits non-zero without printing the result line:
                  RenderConfig field at its default, seed 0: one warm-up
                  render, then 3 timed reps of 5 iterations. Each rep must
                  launch B3 5 times, B1 5 x (9 + 7) and B2 5 x 4 times.
+9. vcm-goldens - VCM at the golden VCM configuration (2 iterations, L=6,
+                 seed 7) on the eight scenes against the ``*__vcm`` goldens
+                 at PT's bar.
+10. vcm-parity - one VCM+VM iteration of CornellSmall at 64^2, seed 7, on
+                 the card and on the CPU, pixel by pixel.
+11. vcm-main   - VCM on CornellSmall at 512x512, default RenderConfig (L=10),
+                 seed 0: one warm-up render, then 3 timed reps of 5
+                 iterations; each rep must launch B1 5 x 19 and B2 5 x 109
+                 times. Then one profiled iteration.
+12. vcm-vm-main - the same with vertex merging, 2 iterations a rep; B4 must
+                 launch 2 x 10 times too.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5 and 8), errors and times; the last line is
+the main phases (5, 8, 11 and 12), errors and times; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -66,9 +84,13 @@ GOLDEN_RTOL = 5e-3
 # paths flipped by last-ulp differences (phase_goldens): at most 0.5% of
 # the 64x64 pixels, and the image mean within 1e-3
 GOLDEN_MAX_FLIPPED = 20
+# the same z-fight in the *__vcm goldens, which splat light paths too: 18
+# pixels on the CPU (tests/test_torch_vcm.py)
+VCM_GOLDEN_MAX_FLIPPED = 32
 GOLDEN_MEAN_RTOL = 1e-3
 
 GOLDEN_PPM_ITERS = 3
+GOLDEN_VCM_ITERS = 2
 # ppm-goldens: the *__ppm goldens come from JAX's budgeted gather, the
 # port's PPM takes the tile gather, so the two agree statistically
 # (tests/test_pallas_gather.py:98-100): the image mean within 12%, and the
@@ -99,15 +121,25 @@ PPM_MAIN_PHOTONS = 1 << 20
 PPM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
 PLAIN_GATHER_REPS = 3
 
+# VCM (bench.py:236-243): 5 iterations, and 2 with vertex merging
+VCM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
+VCM_VM_MAIN_ITERS = 2
+# B4 against its plain version: the same terms summed in another order
+VM_RTOL = 1e-4
+VM_ATOL_REL = 1e-6
+PLAIN_VM_REPS = 3
+
 KERNELS = {
     "closest_hit_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:56",
     "occluded_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:82",
     "gather_photons_tiled": "oppositerenderer_tpu/accel/pallas_gather.py:180",
+    "merge_vertices_tiled": "oppositerenderer_tpu/accel/pallas_vm.py:64",
 }
 KERNEL_SOURCES = {
     "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
     "occluded_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
     "gather_photons_tiled": "oppositerenderer_tpu_torch/csrc/gather.cu",
+    "merge_vertices_tiled": "oppositerenderer_tpu_torch/csrc/vm.cu",
 }
 
 
@@ -128,6 +160,33 @@ def golden_ppm_config():
     return golden_pt_config().replace(
         render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
         iterations_per_dispatch=GOLDEN_PPM_ITERS)
+
+
+def golden_vcm_config():
+    """The VCM golden configuration of scripts/make_goldens.py."""
+    from oppositerenderer_tpu_torch.config import RenderMethod
+    return golden_pt_config().replace(
+        render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING,
+        iterations_per_dispatch=GOLDEN_VCM_ITERS)
+
+
+def vcm_main_config(use_vm: bool = False):
+    """The JAX bench's VCM case (bench.py:236-237) or, with ``use_vm``, its
+    VCM+VM case (:242-243), at 512^2."""
+    from oppositerenderer_tpu_torch.config import RenderConfig, RenderMethod
+    return RenderConfig(
+        width=MAIN_SIZE, height=MAIN_SIZE,
+        render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING,
+        vcm_use_vm=use_vm)
+
+
+def vcm_rays_per_iteration(cfg) -> int:
+    """Ray lanes per VCM iteration (bench.py:43-48): light pass trace and
+    t=1 shadow rays, camera pass trace, s=1 shadow rays and (L-1) vertex
+    connections per bounce."""
+    n = cfg.width * cfg.height
+    L = cfg.vcm_max_path_length
+    return n * (L - 1) * 2 + n * L * (2 + (L - 1))
 
 
 def ppm_main_config():
@@ -289,6 +348,7 @@ def phase_kernels(dev) -> dict:
               f"plain (hits {int(hit.sum())}, occluded {int(occ.sum())})"
               f"{timing}")
     out["gather_photons_tiled"] = gather_kernel_cases(dev)
+    out["merge_vertices_tiled"] = vm_kernel_cases(dev)
     return out
 
 
@@ -352,12 +412,6 @@ def ppm_gather_inputs(dev):
     return call
 
 
-def _on_cpu(grid):
-    return dataclasses.replace(grid, **{
-        f.name: getattr(grid, f.name).cpu()
-        for f in dataclasses.fields(grid) if f.name != "resolution"})
-
-
 def gather_kernel_cases(dev) -> dict:
     """B3 against its plain version on the card: the tables (and so the
     stats) computed on the card must equal those computed on the CPU, and
@@ -385,7 +439,7 @@ def gather_kernel_cases(dev) -> dict:
             enumerate(cases):
         tables = gk._tile_tables(grid, q, r, u, valid)
         cpu_tables = gk._tile_tables(
-            _on_cpu(grid), q.cpu(), r.cpu() if torch.is_tensor(r) else r,
+            _to(grid, "cpu"), q.cpu(), r.cpu() if torch.is_tensor(r) else r,
             u.cpu(), None if valid is None else valid.cpu())
         for name, a, b in zip(("starts", "lens", "weights", "visited",
                                "total"), tables, cpu_tables):
@@ -426,6 +480,232 @@ def gather_kernel_cases(dev) -> dict:
               f"{int((total - visited).clamp_min(0).sum())}; stats equal, "
               f"sums within tolerance (max |err| {max_err:.3g}, max |ref| "
               f"{scale:.4g}){timing}")
+    return out
+
+
+def vm_case_arrays(seed: int = 0, cluster: bool = False) -> dict:
+    """numpy inputs of one merge round. Without ``cluster``: the synthetic
+    setup of tests/test_vcm_vm.py:106-162, drawn in the same order (16
+    light vertices in a tight cluster, 256 camera vertices around it, a
+    diffuse camera BSDF: nothing is subsampled). With ``cluster``: 16,384
+    light vertices, half of them within a few cells of the 0.02 grid
+    (rows overflow a chunk), the rest over a box 15 cells wide, at depths
+    1-9; 512 camera vertices, half over a box 10 cells wide (more than 8
+    rows per axis), half on the cluster; a glossy camera BSDF on half of
+    them, every fifth inactive; random uniforms: row and chunk
+    subsampling, the path-length cap and the Phong lobe all run."""
+    rng = np.random.default_rng(seed)
+    P, V, n = (4096, 4, 512) if cluster else (8, 2, 256)
+    center = np.array([1.25, 1.0, 1.0])
+    pos = center + rng.uniform(-0.05, 0.05, (P, V, 3))
+    wo = rng.normal(size=(P, V, 3))
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    # wo in the +z hemisphere, which camera BSDFs with n = +z see
+    wo[..., 2] = np.abs(wo[..., 2]) + 0.1
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    up = np.zeros((P, V, 3))
+    up[..., 2] = 1.0
+    store = dict(position=pos, throughput=rng.uniform(0.1, 1.0, (P, V, 3)),
+                 dVCM=rng.uniform(0.0, 2.0, (P, V)),
+                 dVC=rng.uniform(0.0, 2.0, (P, V)),
+                 dVM=rng.uniform(0.0, 2.0, (P, V)), ns=up, ng=up, wo=wo,
+                 valid=np.ones((P, V), bool), depth=np.ones((P, V), np.int32))
+    qpos = center + rng.uniform(-0.04, 0.04, (n, 3))
+    wfix = rng.normal(size=(n, 3))
+    wfix /= np.linalg.norm(wfix, axis=-1, keepdims=True)
+    wfix[:, 2] = np.abs(wfix[:, 2]) + 0.2
+    wfix /= np.linalg.norm(wfix, axis=-1, keepdims=True)
+    cam = dict(thr=rng.uniform(0.2, 1.0, (n, 3)),
+               dVCM=rng.uniform(0.0, 2.0, (n,)),
+               dVM=rng.uniform(0.0, 2.0, (n,)), active=np.ones(n, bool),
+               glossy=np.zeros(n, bool))
+    radius_sq = 0.03 ** 2
+    if cluster:
+        flat = store["position"].reshape(-1, 3)
+        half = flat.shape[0] // 2
+        flat[:half] = center + 0.025 * rng.standard_normal((half, 3))
+        flat[half:] = center + rng.uniform(-0.15, 0.15, (half, 3))
+        store["depth"] = rng.integers(1, 10, (P, V)).astype(np.int32)
+        store["valid"] = rng.uniform(size=(P, V)) < 0.95
+        qpos[:256] = center + rng.uniform(-0.1, 0.1, (256, 3))
+        qpos[256:] = center + rng.uniform(-0.01, 0.01, (256, 3))
+        cam["active"][::5] = False
+        cam["glossy"][1::2] = True
+    u = rng.uniform(size=n)
+    f32 = {k: np.asarray(v, np.float32) if np.asarray(v).dtype == np.float64
+           else v for k, v in store.items()}
+    return dict(store=f32, qpos=qpos.astype(np.float32),
+                wfix=wfix.astype(np.float32),
+                cam={k: np.asarray(v, np.float32) if v.dtype == np.float64
+                     else v for k, v in cam.items()},
+                radius_sq=np.float32(radius_sq), u=u.astype(np.float32),
+                mis_vc_w=np.float32(0.25), n_light_paths=64, depth1=2)
+
+
+def vm_case(dev, seed: int = 0, cluster: bool = False):
+    """:func:`vm_case_arrays` built by the port on ``dev``: the light
+    vertices of CornellSmall's brightest diffuse material, their grid, and
+    the keyword arguments of ``integrators/vcm._merge_vertices`` (with the
+    VCM+VM configuration of tests/test_vcm_vm.py and a merge budget of
+    4096). Returns (scene, cfg, kwargs)."""
+    from oppositerenderer_tpu_torch.bsdf import BSDF
+    from oppositerenderer_tpu_torch.config import RenderConfig, RenderMethod
+    from oppositerenderer_tpu_torch.integrators import vcm
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    a = vm_case_arrays(seed, cluster)
+    scene, _ = get_scene_by_name(MAIN_SCENE, dev)
+    cfg = RenderConfig(
+        width=48, height=48, vcm_use_vm=True, vcm_vm_budget=4096,
+        render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING)
+    mat = int(torch.argmax(scene.materials.kd.sum(dim=-1)))
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    st = a["store"]
+    store = vcm.LightVertexStore(
+        mat=torch.full(st["valid"].shape, mat, dtype=torch.int32,
+                       device=dev),
+        **{k: t(v) for k, v in st.items()})
+    n = a["qpos"].shape[0]
+    kd, ks, expn, kr, kt, ior, diel = scene.materials.bsdf_coefficients(
+        torch.full((n,), mat, device=dev))
+    glossy = t(a["cam"]["glossy"])
+    ks = torch.where(glossy[:, None], 0.3, ks)
+    expn = torch.where(glossy, 20.0, expn)
+    qn = torch.zeros((n, 3), device=dev)
+    qn[:, 2] = 1.0
+    cam_bsdf = BSDF.make(qn, qn, t(a["wfix"]), kd, ks, expn, kr, kt, ior,
+                         diel)
+    radius_sq = t(a["radius_sq"])
+    vgrid = vcm.build_vertex_grid(scene, cfg, store, torch.sqrt(radius_sq))
+    cam = a["cam"]
+    return scene, cfg, dict(
+        cam_bsdf=cam_bsdf, cam_pos=t(a["qpos"]), cam_thr=t(cam["thr"]),
+        cam_dVCM=t(cam["dVCM"]), cam_dVM=t(cam["dVM"]),
+        active=t(cam["active"]), vgrid=vgrid, radius_sq=radius_sq,
+        mis_vc_w=t(a["mis_vc_w"]), n_light_paths=a["n_light_paths"],
+        u_stride=t(a["u"]), depth1=a["depth1"])
+
+
+def vcm_merge_inputs(dev):
+    """The merge's inputs at the second camera bounce of one CornellSmall
+    512^2 VCM+VM iteration (iteration 0, seed 0, the bench's VCM+VM
+    configuration), recorded where ``integrators/vcm._merge_vertices``
+    calls the tile merge. Returns (cfg, kwargs with ``u_rows``)."""
+    from oppositerenderer_tpu_torch.integrators import vcm
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    cfg = vcm_main_config(use_vm=True)
+    r = Renderer(scene, cam, cfg, seed=0)
+    calls = []
+    merge = vcm.merge_vertices_tiled
+
+    def record(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM, cam_dVM,
+               active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1):
+        if depth1 == 2:
+            calls.append(dict(
+                vgrid=vgrid, cam_bsdf=cam_bsdf, cam_pos=cam_pos,
+                cam_thr=cam_thr, cam_dVCM=cam_dVCM, cam_dVM=cam_dVM,
+                active=active, radius_sq=radius_sq, mis_vc_w=mis_vc_w,
+                n_light_paths=n_light_paths, u_rows=u_rows, depth1=depth1))
+        return merge(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
+                     cam_dVM, active, radius_sq, mis_vc_w, n_light_paths,
+                     u_rows, depth1)
+
+    vcm.merge_vertices_tiled = record
+    try:
+        r.compute_iteration(0)
+    finally:
+        vcm.merge_vertices_tiled = merge
+    (call,) = calls
+    return cfg, call
+
+
+def _to(obj, device):
+    """A tensor, or a record of tensors (nested dataclasses), on
+    ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def vm_kernel_cases(dev) -> dict:
+    """B4 against its plain version on the card: the query order and slot
+    tables computed on the card must equal those computed on the CPU, and
+    each of the kernel's two sums the plain version's within VM_RTOL +
+    VM_ATOL_REL * max|ref|."""
+    from oppositerenderer_tpu_torch.accel import vm_kernels as vk
+    cases = []
+    for label, cluster in (("synthetic", False), ("clustered", True)):
+        _, cfg, k = vm_case(dev, 0, cluster)
+        n = k["cam_pos"].shape[0]
+        k["u_rows"] = k.pop("u_stride").reshape(n // vk.TILE, vk.TILE)[
+            :, :vk.ROWS + 2]
+        cases.append((label, cfg, k))
+    cfg, k = vcm_merge_inputs(dev)
+    cases.append((f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM+VM bounce 2", cfg, k))
+
+    def tables(cfg, k):
+        return vk.merge_tables(
+            k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
+            k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"],
+            k["u_rows"], k["depth1"])
+
+    out = {"max_abs_err": 0.0}
+    for i, (label, cfg, k) in enumerate(cases):
+        order, args, _, _ = tables(cfg, k)
+        cpu_order, cpu_args, _, _ = tables(cfg, _to(k, "cpu"))
+        for name, a, b in (("order", order, cpu_order),
+                           *zip(("starts", "lens", "weights"), args[:3],
+                                cpu_args[:3])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"B4 {label}: the card's {name} "
+                                     "differs from the CPU's")
+        got = vk.merge_vertices_tiled_kernel(*args)
+        want = vk.merge_vertices_tiled_plain(*args)
+        torch.cuda.synchronize()
+        errs, scales = [], []
+        for which, g, w in zip(("out1", "out2"), got, want):
+            err = (g.double() - w.double()).abs()
+            scale = float(w.abs().max())
+            bad = int((err > VM_RTOL * w.double().abs()
+                       + VM_ATOL_REL * scale).sum())
+            if bad or not bool(torch.isfinite(g).all()):
+                raise AssertionError(
+                    f"B4 {which} differs from its plain version on {label}:"
+                    f" {bad} sums outside the tolerance, max |err| "
+                    f"{float(err.max()):.3g} (max |ref| {scale:.3g})")
+            errs.append(float(err.max()))
+            scales.append(scale)
+        if scales[0] <= 0.0:
+            raise AssertionError(f"B4 {label}: no merge energy")
+        out["max_abs_err"] = max(out["max_abs_err"], *errs)
+        timing = ""
+        if i == len(cases) - 1:   # the main path's shape
+            out["ms"] = cuda_ms(lambda: vk.merge_vertices_tiled_kernel(*args))
+            out["plain_ms"] = cuda_ms(
+                lambda: vk.merge_vertices_tiled_plain(*args),
+                reps=PLAIN_VM_REPS, warmup=1)
+            timing = (f"; ms kernel {out['ms']:.4f} (median of "
+                      f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
+                      f"(median of {PLAIN_VM_REPS})")
+        lens = args[1]
+        print(f"[kernels] B4 {label}: queries={args[4].shape[0]} (valid "
+              f"{int((args[4][:, 24] > 0.5).sum())}) vertices="
+              f"{args[5].shape[0]}, staged {int(lens.sum())}, slots "
+              f"subsampled {int((args[2] > 1.0).sum())}; tables equal, sums "
+              f"within tolerance (max |err| out1 {errs[0]:.3g} of "
+              f"{scales[0]:.4g}, out2 {errs[1]:.3g} of {scales[1]:.4g})"
+              f"{timing}")
     return out
 
 
@@ -637,6 +917,164 @@ def phase_ppm_main(dev) -> dict:
     return launches
 
 
+def phase_vcm_goldens(dev) -> None:
+    """The ``*__vcm`` goldens come from JAX's VC (no merging), which the
+    port follows stream by stream: PT's bar, with Cornell's z-fight
+    allowance of VCM_GOLDEN_MAX_FLIPPED pixels (phase_goldens)."""
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import SCENE_NAMES, \
+        get_scene_by_name
+    goldens = np.load(GOLDENS)
+    for name in SCENE_NAMES:
+        scene, cam = get_scene_by_name(name, dev)
+        r = Renderer(scene, cam, golden_vcm_config(), seed=GOLDEN_SEED)
+        img = r.render(GOLDEN_VCM_ITERS).mean_radiance().cpu().numpy()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{name}: non-finite pixels")
+        bad, worst, mean_err = golden_agreement(
+            img, goldens[f"{name}__vcm"].astype(np.float32))
+        allowed = VCM_GOLDEN_MAX_FLIPPED if name == "Cornell" else 0
+        print(f"[vcm-goldens] {name}: {bad} of {img.shape[0] * img.shape[1]}"
+              f" pixels outside the tolerance (allowed {allowed}), worst "
+              f"pixel at {worst:.3f} of it, image mean off by "
+              f"{mean_err:.2e}")
+        if bad > allowed or mean_err > GOLDEN_MEAN_RTOL:
+            raise AssertionError(f"{name} VCM diverged from its golden")
+
+
+def phase_vcm_parity(dev) -> None:
+    """One VCM+VM iteration at the golden VCM configuration on the card and
+    on the CPU (plain versions): the same estimator on two devices, up to
+    float rounding and the order of the splats' atomic adds."""
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    cfg = golden_vcm_config().replace(vcm_use_vm=True)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene, cam = get_scene_by_name(MAIN_SCENE, d)
+        r = Renderer(scene, cam, cfg, seed=GOLDEN_SEED)
+        imgs.append(r.render(1).mean_radiance().cpu().numpy())
+    share, mean_err = image_agreement(*imgs)
+    print(f"[vcm-parity] {MAIN_SCENE} {cfg.width}x{cfg.height} VCM+VM, one "
+          f"iteration: {share:.4%} of the pixels within rtol "
+          f"{PPM_PIXEL_RTOL} of the CPU port's, image mean off by "
+          f"{mean_err:.2e}")
+    if (not np.isfinite(imgs[0]).all() or share < PPM_MIN_AGREEING
+            or mean_err > PPM_MEAN_RTOL):
+        raise AssertionError("VCM+VM on the card differs from the CPU port")
+
+
+def profile_iteration(r, tag: str) -> None:
+    """One more iteration under torch.profiler: device operations launched,
+    their summed device time against the profiled wall time, the costliest
+    ones and the port's kernels, and the host time of the integrator's
+    ranges (whose device-side annotations are not operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.name.startswith("vcm_"):
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                ranges[e.name] = ranges.get(e.name, 0.0) + ms
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0, 0.0])
+            t[0] += 1
+            t[1] += ms
+    n_ops = sum(c for c, _ in by_name.values())
+    busy_ms = sum(ms for _, ms in by_name.values())
+    print(f"[{tag}] profiled iteration: {n_ops} device operations, device "
+          f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle "
+          f"{1.0 - busy_ms / wall_ms:.4f} under the profiler); host ms per "
+          "range " + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()))
+    ours = ("closest_hit_tris_kernel", "occluded_tris_kernel",
+            "vm_tiled_kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    top += [kv for kv in by_name.items()
+            if any(k in kv[0] for k in ours) and kv not in top]
+    for name, (count, ms) in top:
+        print(f"[{tag}]   {ms:9.3f} ms {ms / busy_ms:7.2%} x{count:<6d} "
+              f"{name[:100]}")
+
+
+def phase_vcm_main(dev, use_vm: bool) -> dict:
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.accel import vm_kernels as vk
+    from oppositerenderer_tpu_torch.film import save_png
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    tag = "vcm-vm-main" if use_vm else "vcm-main"
+    iters = VCM_VM_MAIN_ITERS if use_vm else VCM_MAIN_ITERS
+    cfg = vcm_main_config(use_vm)
+    L = cfg.vcm_max_path_length
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    r = Renderer(scene, cam, cfg, seed=0)
+    t0 = time.perf_counter()
+    r.render(iters)
+    print(f"[{tag}] warm-up: {iters} iterations in "
+          f"{time.perf_counter() - t0:.3f} s")
+    wrappers = [ik.closest_hit_tris, ik.occluded_tris]
+    # per iteration: one closest hit per light bounce (L-1) and camera
+    # bounce (L); one any-hit per t=1 splat (L-1), per s=1 sample (L) and
+    # per vertex connection (L x (L-1) paired vertices); one merge per
+    # camera bounce
+    expected = {"closest_hit_tris": iters * (2 * L - 1),
+                "occluded_tris": iters * ((L - 1) + L + L * (L - 1))}
+    if use_vm:
+        wrappers.append(vk.merge_vertices_tiled)
+        expected["merge_vertices_tiled"] = iters * L
+    launches = {w.__name__: 0 for w in wrappers}
+    times = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for rep in range(MAIN_REPS):
+        r.restart()
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = r.render(iters)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"[{tag}] rep {rep}: {times[-1]:.4f} s, launches {counts}")
+        for k, c in counts.items():
+            if c != expected[k]:
+                raise AssertionError(f"{k} launched {c} times in a {tag} "
+                                     f"rep, expected {expected[k]}")
+            launches[k] += c
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    med = statistics.median(times)
+    rays = vcm_rays_per_iteration(cfg) * iters
+    stored = r.metrics["light_vertices_stored"] / iters
+    print(f"[{tag}] {MAIN_SCENE} {MAIN_SIZE}x{MAIN_SIZE} VCM"
+          f"{'+VM' if use_vm else ''}, L={L}: ms/iter median "
+          f"{med / iters * 1e3:.3f}, min {min(times) / iters * 1e3:.3f}, "
+          f"spread {(max(times) - min(times)) / med:.4f}; rays/s "
+          f"{rays / med:.4g}; light vertices stored per iteration "
+          f"{stored:.6g}; peak device memory {peak:.3f} GiB")
+
+    img = film.mean_radiance()
+    if tuple(img.shape) != (MAIN_SIZE, MAIN_SIZE, 3):
+        raise AssertionError(f"image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        raise AssertionError(f"{tag} image is not finite and positive")
+    if stored <= 0:
+        raise AssertionError(f"{tag} stored no light vertex")
+    png = Path(tempfile.gettempdir()) / f"chip_smoke_cornellsmall_{tag}.png"
+    save_png(film, png)
+    print(f"[{tag}] image mean {float(img.mean()):.5f}, saved {png}")
+    profile_iteration(r, tag)
+    return launches
+
+
 def main() -> int:
     name = phase_device()   # first: no CUDA device, no result
     dev = torch.device("cuda", 0)
@@ -651,6 +1089,11 @@ def main() -> int:
     phase_ppm_parity(dev)
     for k, c in phase_ppm_main(dev).items():
         launches[k] += c
+    phase_vcm_goldens(dev)
+    phase_vcm_parity(dev)
+    for use_vm in (False, True):
+        for k, c in phase_vcm_main(dev, use_vm).items():
+            launches[k] += c
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k], **kernels[k]}

@@ -4,8 +4,8 @@ The counterpart of ``oppositerenderer_tpu/camera.py``: the reference's
 ``Camera::setup`` semantics (Camera.cpp:333-345: ``lookdir`` is not
 normalised — its length is the focal distance; ``camera_u/v`` span the
 half extents of the image plane in world units) and the DoF ray
-modification of helpers/camera.h:11-28. The VCM t=1 machinery (camera
-pdfs, world-to-raster) arrives with the VCM slice.
+modification of helpers/camera.h:11-28, and the VCM camera pdf and
+projection machinery (VCMCameraPass.cu:108-145, vcm.h connectCameraT1).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import math as pymath
 import numpy as np
 import torch
 
-from .core.math import Tensor, dot, normalize
+from .core.math import Tensor, dot, length, normalize
 from .core.sampling import sample_unit_disc
 
 
@@ -88,6 +88,54 @@ class Camera:
         # a tensor condition, not a Python branch: no device sync per call
         use = self.aperture > 0.0
         return torch.where(use, o2, origin), torch.where(use, d2, direction)
+
+    # ------------------------------------------------- VCM t=1 machinery
+    @property
+    def image_plane_size(self) -> Tensor:
+        """2*(ulen, vlen) in world units (Camera.cpp:344)."""
+        return 2.0 * torch.stack([length(self.camera_u),
+                                  length(self.camera_v)])
+
+    def pdf_quantities(self, direction: Tensor, width: int, height: int
+                       ) -> tuple[Tensor, Tensor]:
+        """(cameraPdfW, cos_at_camera) for ray directions [...,3]
+        (VCMCameraPass.cu:131-144): cameraPdfW = imageToSolidAngleFactor /
+        pixelArea with imageToSolidAngleFactor = (distToImagePlane/cos)^2 /
+        cos, the pixel area taken as x*y (the reference's x*x is a typo)."""
+        look_n = normalize(self.lookdir)
+        cos_at_camera = dot(look_n, direction)
+        dist_image = length(self.lookdir)
+        img_to_solid = torch.square(dist_image / cos_at_camera) \
+            / cos_at_camera
+        ips = self.image_plane_size
+        pixel_area = (ips[0] / width) * (ips[1] / height)
+        return img_to_solid / pixel_area, cos_at_camera
+
+    def world_to_raster(self, point: Tensor, width: int, height: int
+                        ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+        """Project world points [...,3] to raster coordinates for the
+        light-tracing splats (vcm.h connectCameraT1). Returns (px, py,
+        in_frustum, unit direction from the eye)."""
+        to_p = point - self.eye
+        dist = length(to_p)
+        d = to_p / torch.clamp_min(dist, 1e-20)[..., None]
+        look_n = normalize(self.lookdir)
+        cos_cam = dot(look_n, d)
+        focal = length(self.lookdir)
+        behind = cos_cam <= 1e-6
+        # the ray's crossing of the image plane at distance focal
+        t = focal / torch.clamp_min(cos_cam, 1e-6)
+        on_plane = self.eye + t[..., None] * d
+        rel = on_plane - (self.eye + self.lookdir)
+        ulen2 = dot(self.camera_u, self.camera_u)
+        vlen2 = dot(self.camera_v, self.camera_v)
+        ndc_x = dot(rel, self.camera_u) / ulen2   # [-1, 1] in the frustum
+        ndc_y = dot(rel, self.camera_v) / vlen2
+        px = (ndc_x + 1.0) * 0.5 * width
+        py = (ndc_y + 1.0) * 0.5 * height
+        inside = ((~behind) & (px >= 0) & (px < width)
+                  & (py >= 0) & (py < height))
+        return px, py, inside, d
 
     # ----------------------------------------------------- interactive ops
     def _remake(self, eye, lookat) -> "Camera":

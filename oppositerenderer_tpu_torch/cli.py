@@ -3,13 +3,14 @@
 The counterpart of ``oppositerenderer_tpu/cli.py`` with its flags: pick a
 scene, render iterations, write a preview every few iterations, print a
 stats line per iteration, checkpoint and resume. The port renders path
-tracing and progressive photon mapping; ``--method vcm`` and ``--serve``
-(the live viewer) exit with an error until those slices arrive. There is
-no ``--pallas``: the device decides whether the CUDA kernels run.
+tracing, progressive photon mapping and VCM (``--vm`` adds vertex
+merging); ``--serve`` (the live viewer) exits with an error until its
+slice arrives. There is no ``--pallas``: the device decides whether the
+CUDA kernels run.
 
 Usage:
-  python -m oppositerenderer_tpu_torch.cli --scene CornellSmall --method pt \
-      --size 256 --iterations 64 --output out.png
+  python -m oppositerenderer_tpu_torch.cli --scene CornellSmall --method vcm \
+      --size 512 --iterations 64 --output out.png
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Progressive renderer on PyTorch/CUDA")
     p.add_argument("--scene", default="CornellSmall",
                    help="built-in Cornell scene name")
-    p.add_argument("--method", default="pt", choices=["pt", "ppm", "vcm"],
-                   help="render method (pt and ppm are ported)")
+    p.add_argument("--method", default="vcm", choices=["pt", "ppm", "vcm"],
+                   help="render method")
     p.add_argument("--size", type=int, default=512,
                    help="square output resolution")
     p.add_argument("--width", type=int, default=None)
@@ -44,7 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--photons", type=int, default=1 << 20,
                    help="photons per PPM iteration")
     p.add_argument("--ppm-radius", type=float, default=None,
-                   help="initial PPM radius (default: scene heuristic)")
+                   help="initial PPM/VCM merge radius (default: scene "
+                        "heuristic)")
+    p.add_argument("--vm", action="store_true",
+                   help="VCM: enable vertex merging")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file to save to after rendering")
     p.add_argument("--resume", action="store_true",
@@ -76,9 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.method == "vcm":
-        p.error("--method vcm is not yet ported to PyTorch (pt and ppm "
-                "are); use the JAX package's CLI")
     if args.serve is not None:
         p.error("--serve (the live viewer) is not yet ported to PyTorch")
     if args.list_devices:
@@ -102,10 +103,12 @@ def main(argv=None) -> int:
         p.error("no CUDA device: pass --cpu to render with plain PyTorch")
 
     method = {"pt": RenderMethod.PATH_TRACING,
-              "ppm": RenderMethod.PROGRESSIVE_PHOTON_MAPPING}[args.method]
+              "ppm": RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
+              "vcm": RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING}[args.method]
     cfg = RenderConfig(width=args.width or args.size,
                        height=args.height or args.size, render_method=method,
-                       photons_per_iteration=args.photons, gamma=args.gamma)
+                       photons_per_iteration=args.photons, gamma=args.gamma,
+                       vcm_use_vm=args.vm)
     t0 = time.perf_counter()
     scene, camera = get_scene_by_name(args.scene, device)
     if not args.quiet:
@@ -144,7 +147,9 @@ def main(argv=None) -> int:
             m = r.render_next_iteration()
             if not args.quiet:
                 extra = "".join(f" {k}={v:.3g}" for k, v in m.items()
-                                if k in ("photons_stored", "ppm_radius"))
+                                if k in ("photons_stored",
+                                         "light_vertices_stored",
+                                         "ppm_radius"))
                 print(f"iter {m['iteration']:4d}  "
                       f"{m['iteration_seconds'] * 1e3:7.1f} ms{extra}")
             if args.preview_every and r.iteration % args.preview_every == 0:

@@ -1,4 +1,5 @@
-"""Scene, camera, key and photon records from the JAX package's leaves.
+"""Scene, camera, key, photon and light-vertex records from the JAX
+package's leaves.
 
 The JAX package's records are trees of arrays. Handed over as numpy
 arrays, with the port's field names (a nested mapping, e.g. from
@@ -15,6 +16,7 @@ import torch
 
 from .camera import Camera
 from .core.rng import Key
+from .integrators.vcm import LightVertexStore, VertexGrid
 from .lights import LIGHT_FIELDS, LightTable
 from .photon_map import PhotonBatch, PhotonGrid
 from .scene.types import MATERIAL_FIELDS, Geometry, MaterialTable, Scene
@@ -24,6 +26,9 @@ CAMERA_FIELDS = ("eye", "lookdir", "up", "camera_u", "camera_v", "aperture")
 PHOTON_BATCH_FIELDS = tuple(PhotonBatch.__dataclass_fields__)
 PHOTON_GRID_ARRAYS = ("position", "power", "direction", "offsets", "origin",
                       "cell_size", "n_valid")
+LIGHT_VERTEX_FIELDS = tuple(LightVertexStore.__dataclass_fields__)
+VERTEX_GRID_ARRAYS = tuple(f for f in VertexGrid.__dataclass_fields__
+                           if f != "resolution")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -89,4 +94,18 @@ def photon_grid_from_numpy(leaves: Mapping,
                            device: torch.device | str = "cpu") -> PhotonGrid:
     """``leaves`` maps a JAX ``PhotonGrid``'s arrays and ``resolution``."""
     return PhotonGrid(**_tensors(leaves, PHOTON_GRID_ARRAYS, device),
+                      resolution=int(leaves["resolution"]))
+
+
+def light_vertex_store_from_numpy(leaves: Mapping,
+                                  device: torch.device | str = "cpu"
+                                  ) -> LightVertexStore:
+    """``leaves`` maps a JAX ``LightVertexStore``'s fields ([P,V,...])."""
+    return LightVertexStore(**_tensors(leaves, LIGHT_VERTEX_FIELDS, device))
+
+
+def vertex_grid_from_numpy(leaves: Mapping,
+                           device: torch.device | str = "cpu") -> VertexGrid:
+    """``leaves`` maps a JAX ``VertexGrid``'s arrays and ``resolution``."""
+    return VertexGrid(**_tensors(leaves, VERTEX_GRID_ARRAYS, device),
                       resolution=int(leaves["resolution"]))

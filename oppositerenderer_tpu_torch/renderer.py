@@ -94,8 +94,8 @@ class Renderer:
 
     def _iteration(self, iteration: int, radius_sq):
         """Radiance [H,W,3] + stats of one iteration at the squared PPM
-        radius ``radius_sq``; non-finite radiance is scrubbed to 0, as the
-        film does."""
+        radius ``radius_sq`` (VCM's merge radius too); non-finite radiance
+        is scrubbed to 0, as the film does."""
         method = self.cfg.render_method
         if method == RenderMethod.PATH_TRACING:
             from .integrators import pt
@@ -108,9 +108,10 @@ class Renderer:
                 self.scene, self.camera, self.cfg, iteration, self.root_key,
                 radius_sq)
         else:
-            raise NotImplementedError(
-                f"{method.name}: the port renders PATH_TRACING and "
-                "PROGRESSIVE_PHOTON_MAPPING; VCM arrives with a later slice")
+            from .integrators import vcm
+            radiance, stats = vcm.render_iteration(
+                self.scene, self.camera, self.cfg, iteration, self.root_key,
+                radius_sq)
         return torch.where(torch.isfinite(radiance), radiance, 0.0), stats
 
     def compute_iteration(self, iteration: int):

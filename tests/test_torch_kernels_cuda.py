@@ -8,9 +8,10 @@ Run them on such a machine with
 (``--noconftest``: the suite's conftest imports JAX, which these tests do
 not need.)
 The library is built with --fmad=false, so the intersection kernels and
-their plain versions must agree bit for bit. The gather kernel (B3) sums
-the same terms as its plain version in another order: rtol 1e-4 plus
-atol 1e-6 * max|ref|, with equal stats.
+their plain versions must agree bit for bit. The gather kernel (B3) and
+the vertex-merge kernel (B4) sum the same terms as their plain versions in
+another order: rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and
+tables.
 """
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 from oppositerenderer_tpu_torch.accel import gather_kernels as gk  # noqa
 from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+from oppositerenderer_tpu_torch.accel import vm_kernels as vk  # noqa: E402
 from oppositerenderer_tpu_torch.accel.intersect import \
     occluder_mask  # noqa: E402
 from oppositerenderer_tpu_torch.config import (RenderConfig,  # noqa: E402
@@ -107,7 +109,7 @@ def test_gather_kernel_matches_plain_version(cuda, case):
     got, gst = gk.gather_photons_tiled(grid, q, qn, r, u_rows=u,
                                        check_normal=case != "no_normal")
     assert gk.gather_photons_tiled.launches == before + 1
-    cpu = chip_smoke._on_cpu(grid)
+    cpu = chip_smoke._to(grid, "cpu")
     want, wst = gk.gather_photons_tiled(cpu, q.cpu(), qn.cpu(), r,
                                         u_rows=u.cpu(),
                                         check_normal=case != "no_normal")
@@ -139,5 +141,66 @@ def test_ppm_launch_counts_and_cpu_agreement(cuda):
     assert counts == [2 * (cfg.max_radiance_trace_depth
                            + cfg.max_photon_trace_depth),
                       2 * cfg.ppm_direct_shadow_samples, 2]
+    assert np.isfinite(imgs[1]).all()
+    assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_vm_kernel_matches_plain_version(cuda, cluster):
+    scene, cfg, k = chip_smoke.vm_case(cuda, 0, cluster)
+    n = k["cam_pos"].shape[0]
+    u_rows = k["u_stride"].reshape(n // vk.TILE, vk.TILE)[:, :vk.ROWS + 2]
+    _, args, _, _ = vk.merge_tables(
+        k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
+        k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"], u_rows,
+        k["depth1"])
+    before = vk.merge_vertices_tiled.launches
+    got = vk.merge_vertices_tiled_kernel(*args)
+    assert vk.merge_vertices_tiled.launches == before + 1
+    want = vk.merge_vertices_tiled_plain(*args)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            g.cpu().numpy(), w.cpu().numpy(), rtol=chip_smoke.VM_RTOL,
+            atol=chip_smoke.VM_ATOL_REL * float(w.abs().max()))
+    assert float(want[0].abs().max()) > 0.0
+    # the whole merge round on the card against the CPU's
+    merged = vcm_merge(scene, cfg, k)
+    cpu = vcm_merge(*(chip_smoke._to(x, "cpu") for x in (scene, cfg, k)))
+    np.testing.assert_allclose(merged.cpu().numpy(), cpu.numpy(),
+                               rtol=chip_smoke.VM_RTOL,
+                               atol=chip_smoke.VM_ATOL_REL
+                               * float(cpu.abs().max()))
+
+
+def vcm_merge(scene, cfg, k):
+    from oppositerenderer_tpu_torch.integrators import vcm
+    return vcm._merge_vertices(
+        scene, cfg, k["cam_bsdf"], k["cam_pos"], k["cam_thr"],
+        k["cam_dVCM"], k["cam_dVM"], k["active"], k["vgrid"],
+        k["radius_sq"], k["mis_vc_w"], k["n_light_paths"], k["u_stride"],
+        k["depth1"])
+
+
+def test_vcm_launch_counts_and_cpu_agreement(cuda):
+    """Per VCM+VM iteration at path length L: B1 (L-1) + L times, B2
+    (L-1) + L + L (L-1) times, B4 L times; none on the CPU."""
+    L = 4
+    cfg = RenderConfig(
+        width=32, height=32, vcm_max_path_length=L, photon_grid_resolution=16,
+        vcm_use_vm=True,
+        render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING)
+    wrappers = (ik.closest_hit_tris, ik.occluded_tris,
+                vk.merge_vertices_tiled)
+    imgs = []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        r = Renderer(scene, cam, cfg, seed=1)
+        counts = [w.launches for w in wrappers]
+        imgs.append(r.render(2).mean_radiance().cpu().numpy())
+        counts = [w.launches - c for w, c in zip(wrappers, counts)]
+        if dev == "cpu":
+            assert counts == [0, 0, 0]
+    assert counts == [2 * (2 * L - 1), 2 * ((L - 1) + L + L * (L - 1)),
+                      2 * L]
     assert np.isfinite(imgs[1]).all()
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)

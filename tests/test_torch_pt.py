@@ -159,21 +159,23 @@ def test_config_validation_and_later_slices():
     assert RenderConfig(pt_direct_light_sampling=False).pt_max_segments == 10
     r = small_renderer(
         render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING)
-    with pytest.raises(NotImplementedError, match="VCM arrives"):
+    r.scene.bvh = object()
+    with pytest.raises(NotImplementedError, match="BVH slice"):
         r.render(1)
 
 
 def test_cli_renders_checkpoints_and_resumes(tmp_path, capsys):
     out, ck = tmp_path / "x.png", tmp_path / "ck.npz"
-    args = ["--cpu", "--scene", "CornellSmall", "--size", "16", "-n", "2",
-            "-o", str(out), "--checkpoint", str(ck), "--preview-every", "1"]
+    args = ["--cpu", "--scene", "CornellSmall", "--method", "pt", "--size",
+            "16", "-n", "2", "-o", str(out), "--checkpoint", str(ck),
+            "--preview-every", "1"]
     assert cli.main(args) == 0
     assert out.exists() and ck.exists()
     assert cli.main(args + ["--resume", "--pan", "0.1", "0.0"]) == 0
     assert "resumed from" in capsys.readouterr().out
-    assert cli.main(["--cpu", "--size", "8", "-n", "1", "-q", "-o",
-                     str(tmp_path / "y.tga")]) == 0
+    assert cli.main(["--cpu", "--method", "pt", "--size", "8", "-n", "1",
+                     "-q", "-o", str(tmp_path / "y.tga")]) == 0
     assert (tmp_path / "y.tga").stat().st_size == 18 + 8 * 8 * 3
     with pytest.raises(SystemExit) as e:
-        cli.main(["--method", "vcm"])
+        cli.main(["--serve", "8000"])
     assert e.value.code == 2
