@@ -10,9 +10,10 @@ and the script exits non-zero without printing the result line:
 1. device      - a CUDA device must be present; prints its name, the torch
                  and CUDA versions and ``nvidia-smi``'s name and power limit.
 2. build       - one nvcc call compiles ``csrc/intersect.cu``,
-                 ``csrc/gather.cu`` and ``csrc/vm.cu`` for sm_90a into one
-                 library; prints its cache key, the build time and ptxas'
-                 registers and spills.
+                 ``csrc/gather.cu``, ``csrc/vm.cu`` and ``csrc/bvh.cu`` for
+                 sm_90a into one library; prints its cache key, the build
+                 time and ptxas' registers and spills. Then g++ must build
+                 the host BVH builder (``native/bvh_builder.cpp``).
 3. kernels     - each kernel against its plain PyTorch version on the same
                  CUDA tensors. B1 and B2 (random rays from a numpy seed, at
                  the PT path's shape and beyond) must be equal bit for bit
@@ -27,8 +28,18 @@ and the script exits non-zero without printing the result line:
                  u_rows, and the vertex grid and second-bounce camera
                  vertices of one CornellSmall 512^2 VCM+VM iteration; query
                  order and slot tables equal to the CPU's, both sums within
-                 rtol 1e-4 + 1e-6 max|ref|. Times kernels and plain versions
-                 with CUDA events.
+                 rtol 1e-4 + 1e-6 max|ref|. B5 (closest and any hit) bit for
+                 bit on four inputs: 65,536 random rays in full Atrium's
+                 box (a quarter dead), every traversal call of one Atrium
+                 512^2 PT iteration (262,144 lanes a call) and of one
+                 Conference 1024^2 PT iteration (1,048,576 lanes), and
+                 random rays in CornellSmall with a BVH; prints the rows,
+                 slab tests and triangle tests of each ray. Times kernels
+                 and plain versions with CUDA events, and each kernel's
+                 bound (the least time of the card for the same work: for
+                 B3/B4 the pairs each query needs, for B5 the tests and row
+                 floats the traversal needs, from the plain version's
+                 counts).
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -54,14 +65,27 @@ and the script exits non-zero without printing the result line:
                  times. Then one profiled iteration.
 12. vcm-vm-main - the same with vertex merging, 2 iterations a rep; B4 must
                  launch 2 x 10 times too.
+13. bvh-goldens - the eight Cornell scenes with a BVH attached, at the golden
+                 PT configuration, against the ``*__pt`` goldens at phase
+                 4's bar; B5 runs, B1/B2 do not.
+14. bvh-parity - one PT iteration of full Atrium at 64^2, seed 7, on the
+                 card and on the CPU, pixel by pixel (phase 7's bar).
+15. atrium-main - PT on Atrium (253,508 triangles) at 512x512, default
+                 RenderConfig, seed 0: one warm-up render, then 3 timed reps
+                 of 5 iterations; each rep must launch B5 5 x 5 times closest
+                 and 5 x 5 any hit, and B1/B2 never. Then one profiled
+                 iteration.
+16. conference-main - the same on Conference (184,714 triangles) at
+                 1024x1024, 2 iterations a rep.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 11 and 12), errors and times; the last line is
-``{"ok": true, "device": {...}}``.
+the main phases (5, 8, 11, 12, 15 and 16), errors, times and bounds; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -129,17 +153,43 @@ VM_RTOL = 1e-4
 VM_ATOL_REL = 1e-6
 PLAIN_VM_REPS = 3
 
+# BVH scenes (bench.py:244-255): Atrium PT at 512^2, 5 iterations;
+# Conference PT at 1024^2, 2 iterations
+ATRIUM_SIZE = 512
+ATRIUM_ITERS = 5
+CONFERENCE_SIZE = 1024
+CONFERENCE_ITERS = 2
+BVH_PARITY_SIZE = 64
+PLAIN_BVH_REPS = 3
+
+# the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
+# bytes/s and FP32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations counted per unit of work for the bounds: one
+# Moller-Trumbore test (9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 arithmetic
+# operations, comparisons not counted); one child's slab test (6 sub, 6
+# mul, 6 min/max per axis pair, 4 for the three-way reductions, 2 against
+# tmin/t_best); one photon/vertex pair's distance test (3 sub, 3 mul, 2 add)
+MT_FLOPS = 46
+SLAB_FLOPS = 24
+PAIR_FLOPS = 8
+
 KERNELS = {
     "closest_hit_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:56",
     "occluded_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:82",
     "gather_photons_tiled": "oppositerenderer_tpu/accel/pallas_gather.py:180",
     "merge_vertices_tiled": "oppositerenderer_tpu/accel/pallas_vm.py:64",
+    "traverse": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
+    "traverse_any": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
 }
 KERNEL_SOURCES = {
     "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
     "occluded_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
     "gather_photons_tiled": "oppositerenderer_tpu_torch/csrc/gather.cu",
     "merge_vertices_tiled": "oppositerenderer_tpu_torch/csrc/vm.cu",
+    "traverse": "oppositerenderer_tpu_torch/csrc/bvh.cu",
+    "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
 }
 
 
@@ -211,6 +261,63 @@ def pt_rays_per_iteration(cfg) -> int:
     return cfg.width * cfg.height * (segs + segs * cfg.pt_shadow_samples)
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes over the HBM rate and the FP32 operations over the FP32 peak."""
+    ms_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ms_ops = flops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations",
+            "library_ms": None}
+
+
+def covered_rows(starts: torch.Tensor, lens: torch.Tensor, n: int) -> int:
+    """Distinct rows of [0, n) inside the windows [start, start + len)."""
+    s, ln = starts.reshape(-1).long(), lens.reshape(-1).long()
+    keep = ln > 0
+    diff = torch.zeros(n + 1, dtype=torch.int64, device=starts.device)
+    diff.index_add_(0, s[keep], torch.ones_like(s[keep]))
+    diff.index_add_(0, (s + ln)[keep].clamp_max(n), -torch.ones_like(s[keep]))
+    return int((torch.cumsum(diff, 0)[:n] > 0).sum())
+
+
+def query_pairs(grid, qpos, radius, starts, lens, valid=None) -> int:
+    """Pairs the tile gather (B3) or merge (B4) needs: each query against
+    the staged photons or vertices of its tile's windows that lie in its
+    own cell box (the cells within ``radius`` of it, as ``_tile_tables``
+    computes them); any other staged element is beyond the radius on some
+    axis. Queries with ``valid`` False or a non-finite position need
+    none."""
+    res = grid.resolution
+    n, n_tiles = qpos.shape[0], starts.shape[0]
+    tile = n // n_tiles
+    dev = qpos.device
+    ok_q = torch.isfinite(qpos).all(dim=1)
+    if valid is not None:
+        ok_q = ok_q & valid
+    r = torch.broadcast_to(torch.as_tensor(radius, dtype=torch.float32,
+                                           device=dev), (n,))
+    npos = torch.where(ok_q[:, None], qpos, grid.origin) - grid.origin
+    inv = 1.0 / grid.cell_size
+    lo = torch.clamp(torch.floor((npos - r[:, None]) * inv), 0,
+                     res - 1).long().reshape(n_tiles, tile, 1, 3)
+    hi = torch.clamp(torch.floor((npos + r[:, None]) * inv), 0,
+                     res - 1).long().reshape(n_tiles, tile, 1, 3)
+    offsets = grid.offsets.long()
+    s = starts.long()[:, None, :]                      # [tiles, 1, slots]
+    e = s + lens.long()[:, None, :]
+    # each window lies in one (y, z) row of cells: that of its first element
+    cell = torch.searchsorted(offsets, s.contiguous(), right=True) - 1
+    y, z = (cell // res) % res, cell // (res * res)
+    row = y * res + z * res * res
+    in_box = ((y >= lo[..., 1]) & (y <= hi[..., 1]) & (z >= lo[..., 2])
+              & (z <= hi[..., 2]) & (e > s) & ok_q.reshape(n_tiles, tile, 1))
+    q_s = offsets[(lo[..., 0] + row).clamp(0, res ** 3 - 1)]
+    q_e = offsets[(hi[..., 0] + row + 1).clamp(0, res ** 3)]
+    overlap = torch.minimum(e, q_e) - torch.maximum(s, q_s)
+    return int(torch.where(in_box, overlap.clamp_min(0), 0).sum())
+
+
 def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms, from CUDA events."""
     for _ in range(warmup):
@@ -254,6 +361,14 @@ def phase_build() -> None:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
             print(f"[build] {line.strip()}")
+    # the host BVH builder: g++ at first use, as on a user's machine; the
+    # numpy fallback would build another tree
+    from oppositerenderer_tpu_torch import native
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError("g++ could not build native/bvh_builder.cpp")
+    print(f"[build] host BVH builder {native._library_path().name} ready in "
+          f"{time.perf_counter() - t0:.2f} s (g++ {' '.join(native.GXX_FLAGS)})")
 
 
 def _rays(n: int, seed: int, box_lo, box_hi, dev):
@@ -327,6 +442,11 @@ def phase_kernels(dev) -> dict:
         out["closest_hit_tris"]["max_abs_err"] = max(
             out["closest_hit_tris"]["max_abs_err"], err)
         timing = ""
+        if name == MAIN_SCENE and n == n_main:   # the main path's shape
+            out["closest_hit_tris"].update(dense_bound(o, d, tmin, tmax, tri9,
+                                                       None))
+            out["occluded_tris"].update(dense_bound(o, d, tmin, tmax, tri9,
+                                                    occ_mask))
         if n == n_main:
             ms = {
                 "closest_hit_tris": (
@@ -349,7 +469,26 @@ def phase_kernels(dev) -> dict:
               f"{timing}")
     out["gather_photons_tiled"] = gather_kernel_cases(dev)
     out["merge_vertices_tiled"] = vm_kernel_cases(dev)
+    out.update(bvh_kernel_cases(dev))
     return out
+
+
+def dense_bound(o, d, tmin, tmax, tri9, occ_mask) -> dict:
+    """B1's (``occ_mask`` None) or B2's bound on these rays: every live ray
+    tests every triangle (B2: up to its first occluding hit); the rays, the
+    triangles and the results cross HBM once."""
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    n, T = o.shape[0], tri9.shape[1]
+    live = tmax > tmin
+    if occ_mask is None:
+        tests = int(live.sum()) * T
+        return bound(n * (32 + 16) + T * 36, tests * MT_FLOPS)
+    *_, valid = ik._mt_terms(o, d, tmin, tmax, tri9)
+    blocked = valid & occ_mask[None, :]
+    first = torch.where(blocked.any(dim=1),
+                        blocked.int().argmax(dim=1) + 1, T)
+    tests = int(torch.where(live, first, 0).sum())
+    return bound(n * (32 + 1) + T * 37, tests * MT_FLOPS)
 
 
 def gather_case(dev, n_photons=4096, n_tiles=2, radius=0.12, seed=0,
@@ -467,13 +606,23 @@ def gather_kernel_cases(dev) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], max_err)
         timing = ""
         if i == len(cases) - 1:   # the main path's shape
+            # each query against the staged photons in its own cell box;
+            # the photons in the windows, the queries, tables and sums
+            # cross HBM once
+            n_q, n_p = q.shape[0], grid.position.shape[0]
+            pairs = query_pairs(grid, q, r, starts, lens)
+            out.update(bound(
+                covered_rows(starts, lens, n_p) * 36 + n_q * (24 + 12)
+                + starts.numel() * 12, pairs * PAIR_FLOPS))
+            timing = (f"; pairs needed {pairs} of "
+                      f"{int(lens.long().sum()) * gk.TILE} staged")
             out["ms"] = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
             out["plain_ms"] = cuda_ms(
                 lambda: gk.gather_photons_tiled_plain(*args),
                 reps=PLAIN_GATHER_REPS, warmup=1)
-            timing = (f"; ms kernel {out['ms']:.4f} (median of "
-                      f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
-                      f"(median of {PLAIN_GATHER_REPS})")
+            timing += (f"; ms kernel {out['ms']:.4f} (median of "
+                       f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
+                       f"(median of {PLAIN_GATHER_REPS})")
         print(f"[kernels] B3 {label}: queries={q.shape[0]} photons="
               f"{grid.position.shape[0]} (valid {int(grid.n_valid)}), "
               f"visited {int(visited.sum())}, subsampled "
@@ -691,13 +840,24 @@ def vm_kernel_cases(dev) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], *errs)
         timing = ""
         if i == len(cases) - 1:   # the main path's shape
+            # each valid query (a 128-byte table row, two float3 sums out)
+            # against the staged vertices (52 bytes) in its own cell box
+            lens_, n_q, n_v = args[1], args[4].shape[0], args[5].shape[0]
+            pairs = query_pairs(k["vgrid"], args[4][:, 0:3],
+                                torch.sqrt(args[3][0]), args[0], lens_,
+                                args[4][:, 24] > 0.5)
+            out.update(bound(
+                covered_rows(args[0], lens_, n_v) * 52 + n_q * (128 + 24)
+                + args[0].numel() * 12, pairs * PAIR_FLOPS))
+            timing = (f"; pairs needed {pairs} of "
+                      f"{int(lens_.long().sum()) * vk.TILE} staged")
             out["ms"] = cuda_ms(lambda: vk.merge_vertices_tiled_kernel(*args))
             out["plain_ms"] = cuda_ms(
                 lambda: vk.merge_vertices_tiled_plain(*args),
                 reps=PLAIN_VM_REPS, warmup=1)
-            timing = (f"; ms kernel {out['ms']:.4f} (median of "
-                      f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
-                      f"(median of {PLAIN_VM_REPS})")
+            timing += (f"; ms kernel {out['ms']:.4f} (median of "
+                       f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
+                       f"(median of {PLAIN_VM_REPS})")
         lens = args[1]
         print(f"[kernels] B4 {label}: queries={args[4].shape[0]} (valid "
               f"{int((args[4][:, 24] > 0.5).sum())}) vertices="
@@ -706,6 +866,139 @@ def vm_kernel_cases(dev) -> dict:
               f"within tolerance (max |err| out1 {errs[0]:.3g} of "
               f"{scales[0]:.4g}, out2 {errs[1]:.3g} of {scales[1]:.4g})"
               f"{timing}")
+    return out
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Lanes whose values differ bit for bit (float32 compared as int32)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def pt_traversal_calls(scene, cam, size: int):
+    """The traversal calls of one PT iteration of a BVH scene at size^2
+    (iteration 0, seed 0, the default RenderConfig), recorded where
+    ``accel/intersect.py`` calls the BVH wrappers: (closest-hit inputs,
+    any-hit inputs), each a list of (o, d, tmin, tmax) per call."""
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    # the module (the package exports a function of the same name)
+    isect = importlib.import_module("oppositerenderer_tpu_torch.accel.intersect")
+    calls = {"traverse": [], "traverse_any": []}
+    wrappers = {k: getattr(isect, k) for k in calls}
+
+    def recorder(k):
+        def record(bvh, o, d, tmin, tmax):
+            calls[k].append((o, d, tmin, tmax))
+            return wrappers[k](bvh, o, d, tmin, tmax)
+        return record
+
+    cfg = RenderConfig(width=size, height=size)
+    for k in calls:
+        setattr(isect, k, recorder(k))
+    try:
+        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
+    finally:
+        for k, w in wrappers.items():
+            setattr(isect, k, w)
+    return calls["traverse"], calls["traverse_any"]
+
+
+def bvh_bound(bvh, n: int, any_hit: bool, visits, row_floats) -> dict:
+    """B5's bound on one call from the plain version's counts: the rays and
+    results cross HBM once, and so do the floats of each row that some ray
+    read and whose traversal uses them; the slab tests of the children in
+    ``cmask & valid`` of each inner visit and the triangles each ray
+    tested (any hit: the flagged ones up to its first hit)."""
+    return bound(n * (32 + (1 if any_hit else 17))
+                 + 4 * int(row_floats.sum()),
+                 float(visits[:, 2].sum()) * SLAB_FLOPS
+                 + float(visits[:, 3].sum()) * MT_FLOPS)
+
+
+def bvh_kernel_cases(dev) -> dict:
+    """B5 (closest and any hit) against its plain version on the card, bit
+    for bit: random rays in full Atrium's box, every traversal call of one
+    Atrium 512^2 and one Conference 1024^2 PT iteration (each scene's full
+    table at its main path's lane count), and random rays in CornellSmall
+    with a BVH. The timed and bounded shapes are Atrium's main path's: its
+    primary rays and first shadow rays; Conference's are timed too."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    cornell, _ = get_scene_by_name(MAIN_SCENE, dev)
+    cornell_b, cbvh = build_scene_bvh(cornell)
+    cases = []
+    for name, size, key in (("Atrium", ATRIUM_SIZE, True),
+                            ("Conference", CONFERENCE_SIZE, False)):
+        scene, cam = get_scene_by_name(name, dev)
+        closest_calls, any_calls = pt_traversal_calls(scene, cam, size)
+        if name == "Atrium":
+            cases.append(("Atrium random", scene.bvh,
+                          _rays(65536, 300, scene.aabb_min.tolist(),
+                                scene.aabb_max.tolist(), dev), None, False))
+        cases += [(f"{name} {size}^2 PT segment {i} closest", scene.bvh,
+                   list(c), "traverse" if i == 0 else None, key)
+                  for i, c in enumerate(closest_calls)]
+        cases += [(f"{name} {size}^2 PT segment {i} shadow", scene.bvh,
+                   list(c), "traverse_any" if i == 0 else None, key)
+                  for i, c in enumerate(any_calls)]
+    cases.append((f"{MAIN_SCENE} with a BVH random", cbvh,
+                  _rays(MAIN_SIZE * MAIN_SIZE, 301, cornell.aabb_min.tolist(),
+                        cornell.aabb_max.tolist(), dev), None, False))
+    out = {"traverse": {"max_abs_err": 0.0},
+           "traverse_any": {"max_abs_err": 0.0}}
+    for label, bvh, (o, d, tmin, tmax), timed, key in cases:
+        n = o.shape[0]
+        kinds = ("traverse_any",) if "shadow" in label else (
+            ("traverse",) if "closest" in label else ("traverse",
+                                                      "traverse_any"))
+        lines = []
+        for k in kinds:
+            any_hit = k == "traverse_any"
+            got = getattr(bk, k)(bvh, o, d, tmin, tmax)
+            torch.cuda.synchronize()
+            t, prim, u, v, found, visits, row_floats = bk.plain_traversal(
+                bvh, o, d, tmin, tmax, any_hit)
+            want = found if any_hit else (t, prim, u, v, found)
+            pairs = ([("found", got, want)] if any_hit else
+                     list(zip(("t", "prim", "u", "v", "found"), got, want)))
+            for field, a, b in pairs:
+                bad = _bits_differ(a, b)
+                if bad:
+                    raise AssertionError(
+                        f"B5 {k} differs from its plain version on {label}:"
+                        f" {field} differs in {bad} of {n} rays")
+            live = tmax > tmin
+            vis = visits[live].double()
+            b = bvh_bound(bvh, n, any_hit, visits, row_floats)
+            line = (f"{k}: equal bit for bit ({int(found.sum())} of "
+                    f"{int(live.sum())} live rays {'blocked' if any_hit else 'hit'}); "
+                    f"per live ray: inner rows {float(vis[:, 0].mean()):.3f}, "
+                    f"leaf rows {float(vis[:, 1].mean()):.3f}, slab tests "
+                    f"{float(vis[:, 2].mean()):.3f}, triangle tests "
+                    f"{float(vis[:, 3].mean()):.3f}; "
+                    f"{int((row_floats > 0).sum())} of {bvh.rows.shape[0]} "
+                    f"rows read, {4 * int(row_floats.sum())} bytes of them "
+                    f"used; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            if timed == k:
+                fn = getattr(bk, k)
+                ms = cuda_ms(lambda: fn(bvh, o, d, tmin, tmax))
+                line += f"; ms kernel {ms:.4f} (median of {TIMING_REPS})"
+                if key:
+                    plain = bk.traverse_any_plain if any_hit else \
+                        bk.traverse_plain
+                    out[k].update(b)
+                    out[k]["ms"] = ms
+                    out[k]["plain_ms"] = cuda_ms(
+                        lambda: plain(bvh, o, d, tmin, tmax),
+                        reps=PLAIN_BVH_REPS, warmup=1)
+                    line += (f" / plain {out[k]['plain_ms']:.4f} (median of "
+                             f"{PLAIN_BVH_REPS})")
+            lines.append(line)
+        print(f"[kernels] B5 {label}: rays={n}; " + "; ".join(lines))
     return out
 
 
@@ -718,31 +1011,73 @@ def golden_agreement(img: np.ndarray, want: np.ndarray):
             abs(float(img.mean()) / float(want.mean()) - 1.0))
 
 
-def phase_goldens(dev) -> None:
+def phase_goldens(dev, with_bvh: bool = False) -> None:
     """A last-ulp difference in a ray (the port's float arithmetic is not
     XLA's) can flip a path's decision where two surfaces almost touch:
     Cornell's light lies within two float32 ulps of its ceiling. Such a
     flip moves one pixel far beyond the golden tolerance and the image
     mean by ~1e-4, so each scene must keep all but GOLDEN_MAX_FLIPPED of
     its pixels within the golden tolerance and its mean within
-    GOLDEN_MEAN_RTOL."""
+    GOLDEN_MEAN_RTOL. ``with_bvh`` attaches a BVH to each scene first
+    (phase bvh-goldens): B5 must run and B1/B2 must not."""
+    import dataclasses as dc
+
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
     from oppositerenderer_tpu_torch.renderer import Renderer
     from oppositerenderer_tpu_torch.scene import SCENE_NAMES, \
         get_scene_by_name
+    tag = "bvh-goldens" if with_bvh else "goldens"
     goldens = np.load(GOLDENS)
     for name in SCENE_NAMES:
         scene, cam = get_scene_by_name(name, dev)
+        if with_bvh:
+            scene_b, bvh = build_scene_bvh(scene)
+            scene = dc.replace(scene_b, bvh=bvh)
+        before = [w.launches for w in (ik.closest_hit_tris, bk.traverse)]
         r = Renderer(scene, cam, golden_pt_config(), seed=GOLDEN_SEED)
         img = r.render(GOLDEN_ITERS).mean_radiance().cpu().numpy()
+        dense, walked = [w.launches - c for w, c in zip(
+            (ik.closest_hit_tris, bk.traverse), before)]
+        if with_bvh and (dense or not walked):
+            raise AssertionError(f"{name} with a BVH launched B1 {dense} "
+                                 f"and B5 {walked} times")
         if not np.isfinite(img).all():
             raise AssertionError(f"{name}: non-finite pixels")
         bad, worst, mean_err = golden_agreement(
             img, goldens[f"{name}__pt"].astype(np.float32))
-        print(f"[goldens] {name}: {bad} of {img.shape[0] * img.shape[1]} "
+        print(f"[{tag}] {name}: {bad} of {img.shape[0] * img.shape[1]} "
               f"pixels outside the tolerance, worst pixel at {worst:.3f} of "
               f"it, image mean off by {mean_err:.2e}")
         if bad > GOLDEN_MAX_FLIPPED or mean_err > GOLDEN_MEAN_RTOL:
             raise AssertionError(f"{name} PT diverged from its golden")
+
+
+def timed_reps(r, iters: int, wrappers, expected: dict, tag: str):
+    """MAIN_REPS timed renders of ``iters`` iterations, each after a
+    restart; in every rep each wrapper must launch its kernel ``expected``
+    times. Returns (launches summed over the reps, seconds per rep, the
+    last rep's film)."""
+    launches = {w.__name__: 0 for w in wrappers}
+    times = []
+    for rep in range(MAIN_REPS):
+        r.restart()
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = r.render(iters)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {w.__name__: w.launches for w in wrappers}
+        print(f"[{tag}] rep {rep}: {times[-1]:.4f} s, launches {counts}")
+        for k, c in counts.items():
+            if c != expected[k]:
+                raise AssertionError(f"{k} launched {c} times in a {tag} "
+                                     f"rep, expected {expected[k]}")
+            launches[k] += c
+    return launches, times, film
 
 
 def phase_main(dev) -> dict:
@@ -764,24 +1099,8 @@ def phase_main(dev) -> dict:
     expected = {"closest_hit_tris": MAIN_ITERS * cfg.pt_max_segments,
                 "occluded_tris": (MAIN_ITERS * cfg.pt_max_segments
                                   * cfg.pt_shadow_samples)}
-    launches = {w.__name__: 0 for w in wrappers}
-    times = []
-    for rep in range(MAIN_REPS):
-        r.restart()
-        for w in wrappers:
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = r.render(MAIN_ITERS)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        counts = {w.__name__: w.launches for w in wrappers}
-        print(f"[main] rep {rep}: {times[-1]:.4f} s, launches {counts}")
-        for k, c in counts.items():
-            if c != expected[k]:
-                raise AssertionError(f"{k} launched {c} times in a rep, "
-                                     f"expected {expected[k]}")
-            launches[k] += c
+    launches, times, film = timed_reps(r, MAIN_ITERS, wrappers, expected,
+                                       "main")
     med = statistics.median(times)
     rays = pt_rays_per_iteration(cfg) * MAIN_ITERS
     print(f"[main] {MAIN_SCENE} {MAIN_SIZE}x{MAIN_SIZE} PT: ms/iter median "
@@ -874,24 +1193,8 @@ def phase_ppm_main(dev) -> dict:
                                               + cfg.max_photon_trace_depth),
         "occluded_tris": PPM_MAIN_ITERS * cfg.ppm_direct_shadow_samples,
         "gather_photons_tiled": PPM_MAIN_ITERS}
-    launches = {w.__name__: 0 for w in wrappers}
-    times = []
-    for rep in range(MAIN_REPS):
-        r.restart()
-        for w in wrappers:
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = r.render(PPM_MAIN_ITERS)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        counts = {w.__name__: w.launches for w in wrappers}
-        print(f"[ppm-main] rep {rep}: {times[-1]:.4f} s, launches {counts}")
-        for k, c in counts.items():
-            if c != expected[k]:
-                raise AssertionError(f"{k} launched {c} times in a PPM rep, "
-                                     f"expected {expected[k]}")
-            launches[k] += c
+    launches, times, film = timed_reps(r, PPM_MAIN_ITERS, wrappers,
+                                       expected, "ppm-main")
     med = statistics.median(times)
     rays = ppm_rays_per_iteration(cfg) * PPM_MAIN_ITERS
     per_it = {k: r.metrics[k] / PPM_MAIN_ITERS for k in (
@@ -981,7 +1284,7 @@ def profile_iteration(r, tag: str) -> None:
     by_name: dict[str, list] = {}
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
-        if e.name.startswith("vcm_"):
+        if e.name.startswith(("vcm_", "pt_")):
             if e.device_type == torch.autograd.DeviceType.CPU:
                 ranges[e.name] = ranges.get(e.name, 0.0) + ms
         elif e.device_type == torch.autograd.DeviceType.CUDA:
@@ -995,7 +1298,7 @@ def profile_iteration(r, tag: str) -> None:
           f"{1.0 - busy_ms / wall_ms:.4f} under the profiler); host ms per "
           "range " + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()))
     ours = ("closest_hit_tris_kernel", "occluded_tris_kernel",
-            "vm_tiled_kernel")
+            "vm_tiled_kernel", "bvh_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     top += [kv for kv in by_name.items()
             if any(k in kv[0] for k in ours) and kv not in top]
@@ -1031,25 +1334,8 @@ def phase_vcm_main(dev, use_vm: bool) -> dict:
     if use_vm:
         wrappers.append(vk.merge_vertices_tiled)
         expected["merge_vertices_tiled"] = iters * L
-    launches = {w.__name__: 0 for w in wrappers}
-    times = []
     torch.cuda.reset_peak_memory_stats(dev)
-    for rep in range(MAIN_REPS):
-        r.restart()
-        for w in wrappers:
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = r.render(iters)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        counts = {w.__name__: w.launches for w in wrappers}
-        print(f"[{tag}] rep {rep}: {times[-1]:.4f} s, launches {counts}")
-        for k, c in counts.items():
-            if c != expected[k]:
-                raise AssertionError(f"{k} launched {c} times in a {tag} "
-                                     f"rep, expected {expected[k]}")
-            launches[k] += c
+    launches, times, film = timed_reps(r, iters, wrappers, expected, tag)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     med = statistics.median(times)
     rays = vcm_rays_per_iteration(cfg) * iters
@@ -1075,13 +1361,102 @@ def phase_vcm_main(dev, use_vm: bool) -> dict:
     return launches
 
 
+def phase_bvh_parity(dev) -> None:
+    """One PT iteration of full Atrium on the card and on the CPU (plain
+    versions): the same estimator and streams on two devices."""
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    cfg = RenderConfig(width=BVH_PARITY_SIZE, height=BVH_PARITY_SIZE)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene, cam = get_scene_by_name("Atrium", d)
+        r = Renderer(scene, cam, cfg, seed=GOLDEN_SEED)
+        imgs.append(r.render(1).mean_radiance().cpu().numpy())
+    share, mean_err = image_agreement(*imgs)
+    print(f"[bvh-parity] Atrium {cfg.width}x{cfg.height} PT, one iteration: "
+          f"{share:.4%} of the pixels within rtol {PPM_PIXEL_RTOL} of the "
+          f"CPU port's, image mean off by {mean_err:.2e}")
+    if (not np.isfinite(imgs[0]).all() or share < PPM_MIN_AGREEING
+            or mean_err > PPM_MEAN_RTOL or float(imgs[1].mean()) <= 0.0):
+        raise AssertionError("Atrium PT on the card differs from the CPU "
+                             "port")
+
+
+def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
+    """PT on a BVH scene at full width (the JAX bench's atrium_pt and
+    conference_pt cases, bench.py:244-255): the scene build, one warm-up
+    render, 3 timed reps, one profiled iteration."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.film import save_png
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    cfg = RenderConfig(width=size, height=size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene, cam = get_scene_by_name(name, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bvh = scene.bvh
+    if bvh is None or bvh.builder != "native":
+        raise AssertionError(f"{name}: no BVH from the native builder")
+    print(f"[{tag}] {name}: {scene.geometry.n_triangles} triangles, "
+          f"{bvh.rows.shape[0]} rows, depth {bvh.max_stack - 1}, built in "
+          f"{build_s:.3f} s")
+    r = Renderer(scene, cam, cfg, seed=0)
+    t0 = time.perf_counter()
+    r.render(iters)
+    print(f"[{tag}] warm-up: {iters} iterations in "
+          f"{time.perf_counter() - t0:.3f} s")
+    wrappers = (bk.traverse, bk.traverse_any, ik.closest_hit_tris,
+                ik.occluded_tris)
+    # one closest hit per segment, one any hit per shadow sample; the
+    # dense kernels never
+    expected = {"traverse": iters * cfg.pt_max_segments,
+                "traverse_any": (iters * cfg.pt_max_segments
+                                 * cfg.pt_shadow_samples),
+                "closest_hit_tris": 0, "occluded_tris": 0}
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches, times, film = timed_reps(r, iters, wrappers, expected, tag)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    med = statistics.median(times)
+    rays = pt_rays_per_iteration(cfg) * iters
+    print(f"[{tag}] {name} {size}x{size} PT: ms/iter median "
+          f"{med / iters * 1e3:.3f}, min {min(times) / iters * 1e3:.3f}, "
+          f"spread {(max(times) - min(times)) / med:.4f}; rays/s "
+          f"{rays / med:.4g}; scene build {build_s:.3f} s; peak device "
+          f"memory {peak:.3f} GiB")
+
+    img = film.mean_radiance()
+    if tuple(img.shape) != (size, size, 3):
+        raise AssertionError(f"image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        raise AssertionError(f"{tag} image is not finite and positive")
+    png = Path(tempfile.gettempdir()) / f"chip_smoke_{name.lower()}_pt.png"
+    save_png(film, png)
+    print(f"[{tag}] image mean {float(img.mean()):.5f}, saved {png}")
+    profile_iteration(r, tag)
+    return launches
+
+
+def timed(tag: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     name = phase_device()   # first: no CUDA device, no result
     dev = torch.device("cuda", 0)
     # the plain versions' products in full float32, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    kernels = phase_kernels(dev)
+    kernels = timed("kernels", phase_kernels, dev)
     phase_goldens(dev)
     launches = {k: 0 for k in KERNELS}
     launches.update(phase_main(dev))
@@ -1093,6 +1468,15 @@ def main() -> int:
     phase_vcm_parity(dev)
     for use_vm in (False, True):
         for k, c in phase_vcm_main(dev, use_vm).items():
+            launches[k] += c
+    timed("bvh-goldens", phase_goldens, dev, True)
+    timed("bvh-parity", phase_bvh_parity, dev)
+    for tag, scene_name, size, iters in (
+            ("atrium-main", "Atrium", ATRIUM_SIZE, ATRIUM_ITERS),
+            ("conference-main", "Conference", CONFERENCE_SIZE,
+             CONFERENCE_ITERS)):
+        for k, c in timed(tag, phase_bvh_main, dev, tag, scene_name, size,
+                          iters).items():
             launches[k] += c
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],

@@ -6,8 +6,8 @@ into a shared library with a plain C interface, at first use, into
 name carries a key that hashes the flags and every source, so an edit to
 any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
 without it raises. The wrappers (``intersect_kernels``,
-``gather_kernels``, ``vm_kernels``) take their entry points from
-:func:`library`.
+``gather_kernels``, ``vm_kernels``, ``bvh_kernels``) take their entry
+points from :func:`library`.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("intersect.cu", "gather.cu", "vm.cu"))
+                for name in ("intersect.cu", "gather.cu", "vm.cu",
+                                 "bvh.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels round as the
 # plain versions do (the intersection kernels agree with theirs bit for bit)
@@ -37,6 +38,8 @@ ENTRY_POINTS = {
     "occluded_tris": [_PTR] * 6 + [_I32, _I32] + [_PTR] * 2,
     "gather_photons_tiled": [_PTR] * 9 + [_I32, _I32] + [_PTR] * 2,
     "merge_vertices_tiled": [_PTR] * 12 + [_I32] + [_PTR] * 3,
+    "bvh_closest": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 6,
+    "bvh_any": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 2,
 }
 
 

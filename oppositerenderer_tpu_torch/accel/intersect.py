@@ -1,14 +1,18 @@
-"""Ray-scene intersection, dense path.
+"""Ray-scene intersection.
 
-The counterpart of the dense (brute-force) path of
-``oppositerenderer_tpu/accel/intersect.py``: every ray is tested against
-every triangle by ``intersect_kernels.closest_hit_tris`` /
-``occluded_tris`` (a hand-written kernel for CUDA tensors, the plain
-version for CPU tensors; the plain version's Moller-Trumbore takes the
-place of the JAX package's ``_tri_hits``), analytic spheres are tested in
-torch, and the winner's attributes are interpolated in torch. On CUDA one
-kernel launch takes all rays of a call; ``chunk_size`` bounds the plain
-version's [chunk, T] intermediates only. BVH scenes belong to a later slice.
+The counterpart of ``oppositerenderer_tpu/accel/intersect.py``. Scenes
+with a BVH (above ``accel.bvh.BVH_AUTO_THRESHOLD`` triangles) walk it with
+``bvh_kernels.traverse``/``traverse_any`` (kernel B5); the others test
+every ray against every triangle with ``intersect_kernels.closest_hit_tris``
+/ ``occluded_tris`` (kernels B1/B2; the plain version's Moller-Trumbore
+takes the place of the JAX package's ``_tri_hits``). Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors. Analytic spheres are tested in torch either way, and the
+winner's attributes are interpolated in torch. One kernel launch takes
+all rays of a call; ``chunk_size`` bounds the dense plain version's
+[chunk, T] intermediates only. The JAX package's ``coherent`` flag routed
+primary rays to its TPU packet kernel; on the GPU one traversal kernel
+serves every ray population, so there is no such route.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..core.math import Tensor, cross, dot, normalize
 from ..scene.types import EMITTER, Scene
+from .bvh_kernels import traverse, traverse_any
 from .intersect_kernels import (BIG, closest_hit_tris, occluded_tris,
                                 tri9_from_geometry)
 
@@ -34,12 +39,6 @@ class Hit:
     ns: Tensor        # [N,3] interpolated shading normal
     uv: Tensor        # [N,2] texture coords
     mat: Tensor       # [N] int32 material id (0 on miss; gate on .hit)
-
-
-def _require_dense(scene: Scene) -> None:
-    if scene.bvh is not None:
-        raise NotImplementedError(
-            "BVH traversal arrives with the BVH slice of the port")
 
 
 def _sphere_hits(o, d, center, radius, tmin, tmax):
@@ -89,10 +88,15 @@ def _finalize_hit(scene: Scene, o, d, tmin, tmax, t_best_tri, best_tri,
     ns_tri = normalize(w0[:, None] * g.tri_n0[best_tri]
                        + bu[:, None] * g.tri_n1[best_tri]
                        + bv[:, None] * g.tri_n2[best_tri])
-    ng_tri = normalize(cross(g.tri_e1, g.tri_e2))[best_tri]
+    ng_tri = normalize(cross(g.tri_e1[best_tri], g.tri_e2[best_tri]))
     mat_tri = g.tri_mat[best_tri]
-    # uv interpolation serves textures only: it arrives with that slice
-    uv_tri = torch.zeros((n, 2), dtype=torch.float32, device=o.device)
+    # uv interpolation serves textures only
+    if scene.has_textures:
+        uv_tri = (w0[:, None] * g.tri_uv0[best_tri]
+                  + bu[:, None] * g.tri_uv1[best_tri]
+                  + bv[:, None] * g.tri_uv2[best_tri])
+    else:
+        uv_tri = torch.zeros((n, 2), dtype=torch.float32, device=o.device)
 
     if g.n_spheres > 0:
         n_sph = normalize(position - g.sph_center[best_sph])
@@ -117,9 +121,17 @@ def occluder_mask(scene: Scene, prim_mat: Tensor) -> Tensor:
 
 def intersect(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
               tmax: Tensor, chunk_size: int | None = None) -> Hit:
-    """Closest hit for rays [N,3] against the whole scene."""
-    _require_dense(scene)
+    """Closest hit for rays [N,3] against the whole scene: through its BVH
+    when it has one, else by brute force."""
     g = scene.geometry
+    if scene.bvh is not None:
+        t, idx, bu, bv, found = traverse(
+            scene.bvh, o.contiguous(), d.contiguous(), tmin.contiguous(),
+            tmax.contiguous())
+        best_tri = torch.clamp(idx, 0, max(g.n_triangles - 1, 0)).long()
+        t_best_tri = torch.where(found, t, BIG)
+        return _finalize_hit(scene, o, d, tmin, tmax, t_best_tri, best_tri,
+                             bu, bv)
     t, idx, bu, bv = closest_hit_tris(
         o.contiguous(), d.contiguous(), tmin.contiguous(),
         tmax.contiguous(), tri9_from_geometry(g), chunk_size)
@@ -131,12 +143,17 @@ def intersect(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
 
 def occluded(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
              tmax: Tensor, chunk_size: int | None = None) -> Tensor:
-    """Shadow-ray test [N] -> bool. Emitter surfaces never occlude."""
-    _require_dense(scene)
+    """Shadow-ray test [N] -> bool. Emitter surfaces never occlude (in a
+    BVH their flags are baked into the leaf rows)."""
     g = scene.geometry
-    occ = occluded_tris(o.contiguous(), d.contiguous(), tmin.contiguous(),
-                        tmax.contiguous(), tri9_from_geometry(g),
-                        occluder_mask(scene, g.tri_mat), chunk_size)
+    if scene.bvh is not None:
+        occ = traverse_any(scene.bvh, o.contiguous(), d.contiguous(),
+                           tmin.contiguous(), tmax.contiguous())
+    else:
+        occ = occluded_tris(o.contiguous(), d.contiguous(),
+                            tmin.contiguous(), tmax.contiguous(),
+                            tri9_from_geometry(g),
+                            occluder_mask(scene, g.tri_mat), chunk_size)
     if g.n_spheres > 0:
         _, ok_sph = _sphere_hits(o, d, g.sph_center, g.sph_radius,
                                  tmin, tmax)

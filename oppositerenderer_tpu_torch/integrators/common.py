@@ -2,8 +2,9 @@
 
 The counterpart of ``oppositerenderer_tpu/integrators/common.py``: every
 lane builds the same dense composite BSDF from the material table, with
-the glass inside-hit normal flip and IOR swap of Glass.cu:261-264 applied
-per lane.
+textured lanes' kd scaled by their diffuse map and their shading normal
+perturbed by their normal map (material/Texture.cu), and the glass
+inside-hit normal flip and IOR swap of Glass.cu:261-264 applied per lane.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from ..accel.intersect import Hit, occluded
 from ..bsdf import BSDF
 from ..core.math import Tensor, dot, max3
 from ..lights import light_contribution
-from ..scene.types import EMITTER, GLASS, Scene
+from ..scene.texture import apply_normal_map, sample_bilinear
+from ..scene.types import EMITTER, GLASS, TEXTURED, Scene
 
 
 def scene_epsilon(scene: Scene) -> Tensor:
@@ -33,17 +35,31 @@ def bsdf_at_hit(scene: Scene, hit: Hit, incoming_dir: Tensor
     Returns (bsdf, is_emitter, emitter_radiance) where emitter_radiance is
     Lemit on front-face emitter hits, else 0 (DiffuseEmitter.cu:40-52).
     """
-    if scene.has_textures:
-        raise NotImplementedError(
-            "textured materials arrive with the texture slice of the port")
     m = scene.materials.row(hit.mat.long())
     kind = m.kind
     kd, ks, exponent, kr, kt, ior, kr_diel = m.coefficients()
 
+    # textured lanes: kd times the diffuse map; the normal map perturbs the
+    # shading normal in the triangle's tangent frame
+    ns_in = hit.ns
+    if scene.has_textures:
+        textured = (kind == TEXTURED) & (m.texture_id >= 0)
+        tex_rgb = sample_bilinear(scene.textures, m.texture_id, hit.uv)
+        kd = torch.where(textured[..., None], kd * tex_rgb, kd)
+        if scene.normal_maps is not None and scene.normal_maps.shape[0] > 0:
+            has_nm = textured & (m.normal_map_id >= 0)
+            g = scene.geometry
+            tri = torch.clamp(hit.prim, 0, g.n_triangles - 1).long()
+            nm_rgb = sample_bilinear(scene.normal_maps, m.normal_map_id,
+                                     hit.uv)
+            perturbed = apply_normal_map(hit.ns, g.tri_tangent[tri],
+                                         g.tri_bitangent[tri], nm_rgb)
+            ns_in = torch.where(has_nm[..., None], perturbed, hit.ns)
+
     # glass hit from inside: flip normals, swap the IOR pair
     from_outside = dot(hit.ng, incoming_dir) < 0.0
     flip = ((kind == GLASS) & ~from_outside)[..., None]
-    ns = torch.where(flip, -hit.ns, hit.ns)
+    ns = torch.where(flip, -ns_in, ns_in)
     ng = torch.where(flip, -hit.ng, hit.ng)
     ior_eff = torch.where(flip[..., 0], 1.0 / ior, ior)
 

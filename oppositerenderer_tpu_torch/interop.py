@@ -1,4 +1,4 @@
-"""Scene, camera, key, photon and light-vertex records from the JAX
+"""Scene, BVH, camera, key, photon and light-vertex records from the JAX
 package's leaves.
 
 The JAX package's records are trees of arrays. Handed over as numpy
@@ -14,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .accel.bvh import Bvh
 from .camera import Camera
 from .core.rng import Key
 from .integrators.vcm import LightVertexStore, VertexGrid
@@ -29,6 +30,8 @@ PHOTON_GRID_ARRAYS = ("position", "power", "direction", "offsets", "origin",
 LIGHT_VERTEX_FIELDS = tuple(LightVertexStore.__dataclass_fields__)
 VERTEX_GRID_ARRAYS = tuple(f for f in VertexGrid.__dataclass_fields__
                            if f != "resolution")
+BVH_NODES = ("nodes_min", "nodes_max", "nodes_a", "nodes_b")
+BVH_STATICS = ("root_code", "arity", "leaf_size", "max_stack")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -44,17 +47,16 @@ def scene_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
                      ) -> Scene:
     """``leaves`` maps ``geometry``/``materials``/``lights`` to mappings of
     their fields, plus ``aabb_min``, ``aabb_max`` and optionally ``name``,
-    ``textures``, ``normal_maps``, ``bvh`` and ``medium``. Scenes with
-    textures, a BVH or a medium belong to later slices and are refused."""
-    for later in ("textures", "normal_maps"):
-        arr = leaves.get(later)
-        if arr is not None and np.asarray(arr).shape[0] > 0:
-            raise NotImplementedError(
-                f"scene {later} arrive with the texture slice of the port")
-    for later in ("bvh", "medium"):
-        if leaves.get(later) is not None:
-            raise NotImplementedError(
-                f"scenes with a {later} arrive with a later slice")
+    ``textures``, ``normal_maps`` (the atlases), ``bvh`` (a mapping for
+    :func:`bvh_from_numpy`) and ``medium``. A scene with a medium belongs
+    to the media slice and is refused."""
+    if leaves.get("medium") is not None:
+        raise NotImplementedError(
+            "scenes with a medium arrive with the media slice of the port")
+    atlases = {k: _tensor(leaves[k], device)
+               for k in ("textures", "normal_maps")
+               if leaves.get(k) is not None}
+    bvh = leaves.get("bvh")
     return Scene(
         geometry=Geometry(**_tensors(leaves["geometry"], GEOMETRY_FIELDS,
                                      device)),
@@ -64,7 +66,21 @@ def scene_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
                                      device)),
         aabb_min=_tensor(leaves["aabb_min"], device),
         aabb_max=_tensor(leaves["aabb_max"], device),
-        name=str(leaves.get("name", "scene")))
+        bvh=None if bvh is None else bvh_from_numpy(bvh, device),
+        name=str(leaves.get("name", "scene")), **atlases)
+
+
+def bvh_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
+                   ) -> Bvh:
+    """``leaves`` maps a JAX ``Bvh``'s binary node arrays, its ``rows``
+    table and its ``root_code``/``arity``/``leaf_size``/``max_stack``; its
+    int8 ``q_rows`` table serves the TPU only and is not read. The JAX
+    package's ``max_stack`` (sized for its code stack) is at least the
+    port's depth + 1, so its table traverses as it is. The binary node
+    arrays stay on the host, the table goes to ``device``."""
+    return Bvh(**_tensors(leaves, BVH_NODES, "cpu"),
+               rows=_tensor(leaves["rows"], device),
+               **{k: int(leaves[k]) for k in BVH_STATICS})
 
 
 def camera_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"

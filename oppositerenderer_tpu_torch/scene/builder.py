@@ -1,10 +1,10 @@
 """Host-side scene construction (numpy), producing the Scene record.
 
-The counterpart of ``oppositerenderer_tpu/scene/builder.py`` for the
-procedural scenes: geometry accumulates in Python lists and is flattened
-to dense arrays once, then moved to the requested device. The bulk mesh
-entry points, textures and media arrive with the scene-import, texture
-and media slices.
+The counterpart of ``oppositerenderer_tpu/scene/builder.py``: geometry
+accumulates in Python lists (one triangle at a time) and vectorised
+blocks (``add_mesh``, ``add_triangle_soup``), and is flattened to dense
+arrays once, then moved to the requested device with the texture atlases.
+Participating media arrive with the media slice.
 """
 from __future__ import annotations
 
@@ -12,9 +12,9 @@ import numpy as np
 import torch
 
 from ..lights import build_light_table
-from .texture import compute_triangle_tangents
+from .texture import build_atlas, compute_triangle_tangents
 from .types import (DIFFUSE, EMITTER, GLASS, GLOSSY, MATERIAL_FIELDS, MIRROR,
-                    Geometry, MaterialTable, Scene)
+                    TEXTURED, Geometry, MaterialTable, Scene)
 
 
 class SceneBuilder:
@@ -22,8 +22,11 @@ class SceneBuilder:
         self.name = name
         self._materials: list[dict] = []
         self._tris: list[tuple] = []     # (v0,v1,v2,n0,n1,n2,uv0,uv1,uv2,mat)
+        self._bulk: list[dict] = []      # vectorised mesh blocks (add_mesh)
         self._spheres: list[tuple] = []  # (center, radius, mat)
         self._lights: list[dict] = []
+        self._textures: list = []        # images of the diffuse atlas
+        self._normal_maps: list = []
         self._aabb_min = np.full(3, np.inf, np.float32)
         self._aabb_max = np.full(3, -np.inf, np.float32)
 
@@ -65,6 +68,22 @@ class SceneBuilder:
         return self._add_material(kind=EMITTER, kd=kd, emission=tuple(lemit),
                                   light_index=light_idx)
 
+    def add_texture_image(self, image) -> int:
+        """Register a diffuse texture image (np [H,W,3] in [0,1])."""
+        self._textures.append(image)
+        return len(self._textures) - 1
+
+    def add_normal_map_image(self, image) -> int:
+        self._normal_maps.append(image)
+        return len(self._normal_maps) - 1
+
+    def add_textured(self, kd, texture_id: int,
+                     normal_map_id: int = -1) -> int:
+        """material/Texture.h (kd scales the texture lookup)."""
+        return self._add_material(kind=TEXTURED, kd=kd,
+                                  texture_id=texture_id,
+                                  normal_map_id=normal_map_id)
+
     def add_light(self, light: dict) -> int:
         """Standalone (non-emitter-geometry) light, e.g. point/spot."""
         self._lights.append(light)
@@ -100,6 +119,67 @@ class SceneBuilder:
         self.add_triangle(a, a + o1 + o2, a + o2, material,
                           uv0=(0, 0), uv1=(1, 1), uv2=(0, 1))
 
+    def add_mesh(self, vertices, faces, material: int, normals=None,
+                 uvs=None):
+        """Indexed triangle mesh (Scene.cpp:361-430 analog), vectorised for
+        meshes of hundreds of thousands of faces."""
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces, np.int64)
+        if faces.size == 0:
+            return
+        v0 = vertices[faces[:, 0]]
+        v1 = vertices[faces[:, 1]]
+        v2 = vertices[faces[:, 2]]
+        if normals is not None:
+            normals = np.asarray(normals, np.float32)
+            n0, n1, n2 = (normals[faces[:, i]] for i in range(3))
+        else:
+            ng = np.cross(v1 - v0, v2 - v0)
+            ng = ng / np.maximum(np.linalg.norm(ng, axis=1, keepdims=True),
+                                 1e-20)
+            n0 = n1 = n2 = ng
+        if uvs is not None:
+            uvs = np.asarray(uvs, np.float32)
+            uv0, uv1, uv2 = (uvs[faces[:, i]] for i in range(3))
+        else:
+            uv0 = uv1 = uv2 = np.zeros((faces.shape[0], 2), np.float32)
+        mat = np.full((faces.shape[0],), material, np.int32)
+        self._bulk.append(dict(v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
+                               uv0=uv0, uv1=uv1, uv2=uv2, mat=mat))
+        self._grow_aabb(vertices[np.unique(faces)])
+
+    def add_triangle_soup(self, tris, material, normals=None, uvs=None):
+        """Bulk triangle soup [T,3,3] (+ per-vertex normals [T,3,3], uvs
+        [T,3,2], per-triangle or scalar material), with no per-face Python
+        loop."""
+        tris = np.asarray(tris, np.float32)
+        if tris.size == 0:
+            return
+        v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
+        if normals is None:
+            ng = np.cross(v1 - v0, v2 - v0)
+            ng /= np.maximum(np.linalg.norm(ng, axis=1, keepdims=True),
+                             1e-20)
+            n0 = n1 = n2 = ng
+        else:
+            normals = np.asarray(normals, np.float32)
+            n0, n1, n2 = normals[:, 0], normals[:, 1], normals[:, 2]
+        if uvs is None:
+            uv0 = uv1 = uv2 = np.zeros((tris.shape[0], 2), np.float32)
+        else:
+            uvs = np.asarray(uvs, np.float32)
+            uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]
+        mat = np.broadcast_to(np.asarray(material, np.int32),
+                              (tris.shape[0],)).copy()
+        self._bulk.append(dict(v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
+                               uv0=uv0, uv1=uv1, uv2=uv2, mat=mat))
+        self._grow_aabb(tris.reshape(-1, 3))
+
+    @property
+    def n_triangles(self) -> int:
+        return (len(self._tris)
+                + sum(b["mat"].shape[0] for b in self._bulk))
+
     def add_sphere(self, center, radius: float, material: int):
         c = np.asarray(center, np.float32)
         self._spheres.append((c, float(radius), material))
@@ -108,7 +188,7 @@ class SceneBuilder:
     # ---------------------------------------------------------------- build
     def build(self, aabb_padding: float = 0.0,
               device: torch.device | str = "cpu") -> Scene:
-        if not self._tris and not self._spheres:
+        if not self._tris and not self._bulk and not self._spheres:
             raise ValueError("empty scene")
         if not self._lights:
             raise ValueError("scene has no lights")
@@ -119,9 +199,13 @@ class SceneBuilder:
             return np.zeros((0, width), np.float32)
 
         names = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
-        cols = {nm: col(i, 2 if nm.startswith("uv") else 3)
-                for i, nm in enumerate(names)}
-        mats = np.asarray([t[9] for t in self._tris], np.int32).reshape(-1)
+        cols = {nm: np.concatenate(
+            [col(i, 2 if nm.startswith("uv") else 3)]
+            + [b[nm] for b in self._bulk], axis=0)
+            for i, nm in enumerate(names)}
+        mats = np.concatenate(
+            [np.asarray([t[9] for t in self._tris], np.int32).reshape(-1)]
+            + [b["mat"] for b in self._bulk])
         v0, v1, v2 = cols["v0"], cols["v1"], cols["v2"]
         tangent, bitangent = compute_triangle_tangents(
             v0, v1, v2, cols["uv0"], cols["uv1"], cols["uv2"])
@@ -150,4 +234,7 @@ class SceneBuilder:
                      lights=build_light_table(self._lights, device),
                      aabb_min=t(self._aabb_min - aabb_padding),
                      aabb_max=t(self._aabb_max + aabb_padding),
+                     textures=build_atlas(self._textures, device=device),
+                     normal_maps=build_atlas(self._normal_maps,
+                                             device=device),
                      name=self.name)

@@ -3,7 +3,8 @@
 The counterpart of ``oppositerenderer_tpu/scene/cornell.py``: geometry,
 colours, light powers and cameras of the reference's ``scene/Cornell.cpp``
 and ``scene/CornellSmall.cpp``, and the name->scene mapping of
-``Gui/scene/SceneFactory.cpp:24-80`` for the eight Cornell scenes.
+``Gui/scene/SceneFactory.cpp:24-80`` for the eight Cornell scenes and the
+procedural BVH scenes.
 """
 from __future__ import annotations
 
@@ -181,14 +182,23 @@ SCENE_NAMES = ("Cornell",) + tuple(CORNELL_SMALL_VARIANTS)
 
 def get_scene_by_name(name: str, device: torch.device | str = "cpu"
                       ) -> tuple[Scene, Camera]:
-    """SceneFactory::getSceneByName for the Cornell scenes. The procedural
-    BVH scenes (Atrium, Conference) and file import belong to later slices
-    of the port."""
+    """SceneFactory::getSceneByName (Gui/scene/SceneFactory.cpp:24-80): the
+    eight Cornell scenes and the procedural BVH scenes "Atrium" and
+    "Conference" ("Atrium:<detail>", "Conference:<detail>" scale their
+    triangle counts). Scene files (.dae/.obj) belong to the scene-import
+    slice of the port."""
     if name == "Cornell":
         return make_cornell(device)
     if name in CORNELL_SMALL_VARIANTS:
         return make_cornell_small(CORNELL_SMALL_VARIANTS[name], device)
+    base, _, detail = name.partition(":")
+    if base == "Atrium":
+        from .atrium import make_atrium
+        return make_atrium(float(detail or 1.0), device)
+    if base == "Conference":
+        from .conference import make_conference
+        return make_conference(float(detail or 1.0), device)
     raise NotImplementedError(
         f"scene {name!r}: the port renders the Cornell scenes "
-        f"({', '.join(SCENE_NAMES)}); BVH scenes (Atrium, Conference) come "
-        "with the BVH slice and .dae/.obj files with the scene-import slice")
+        f"({', '.join(SCENE_NAMES)}), Atrium and Conference; .dae/.obj "
+        "files come with the scene-import slice")

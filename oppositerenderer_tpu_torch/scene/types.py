@@ -3,8 +3,9 @@
 The counterpart of ``oppositerenderer_tpu/scene/types.py``. A scene is a
 handful of dense tensors: triangles (parallelograms become two
 triangles), analytic spheres, a material parameter table indexed per
-primitive, and the light table. The texture atlases, the BVH and the
-participating medium belong to later slices and stay ``None`` here.
+primitive, the light table, the texture atlases and, above
+``accel.bvh.BVH_AUTO_THRESHOLD`` triangles, the BVH. The participating
+medium belongs to a later slice and stays ``None`` here.
 """
 from __future__ import annotations
 
@@ -111,9 +112,9 @@ class Scene:
     lights: LightTable
     aabb_min: Tensor  # [3]
     aabb_max: Tensor  # [3]
-    textures: Tensor | None = None     # texture slice
-    normal_maps: Tensor | None = None  # texture slice
-    bvh: object = None                 # BVH slice
+    textures: Tensor | None = None     # [n_tex, R, R, 3] diffuse atlas
+    normal_maps: Tensor | None = None  # [n_nm, R, R, 3] normal-map atlas
+    bvh: object = None                 # accel.bvh.Bvh (big scenes)
     medium: object = None              # media slice
     name: str = "scene"
 

@@ -143,8 +143,26 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
 
 
 def test_bvh_scene_raises():
+    """A scene with a BVH takes the BVH route (kernel B5's plain version on
+    the CPU), no longer the dense one: a table the kernel cannot walk (too
+    deep for its stack, another arity) raises there on every device, and
+    a real one gives the dense path's hits."""
+    import dataclasses
+    from oppositerenderer_tpu_torch.accel import bvh_kernels
+    from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
     tscene, _ = get_scene_by_name("CornellSmall")
-    tscene.bvh = object()
-    ta = [torch.as_tensor(a) for a in random_rays(4, seed=6)]
-    with pytest.raises(NotImplementedError, match="BVH slice"):
-        intersect(tscene, *ta)
+    ta = [torch.as_tensor(a) for a in random_rays(64, seed=6)]
+    scene_b, bvh = build_scene_bvh(tscene)
+    for bad, match in (
+            (dict(max_stack=bvh_kernels.KERNEL_MAX_STACK + 1), "stack"),
+            (dict(arity=4), "arity")):
+        broken = dataclasses.replace(
+            scene_b, bvh=dataclasses.replace(bvh, **bad))
+        with pytest.raises(ValueError, match=match):
+            intersect(broken, *ta)
+        with pytest.raises(ValueError, match=match):
+            occluded(broken, *ta)
+    a = intersect(tscene, *ta)
+    b = intersect(dataclasses.replace(scene_b, bvh=bvh), *ta)
+    assert torch.equal(a.hit, b.hit)
+    np.testing.assert_allclose(b.t.numpy(), a.t.numpy(), rtol=1e-6)

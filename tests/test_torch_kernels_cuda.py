@@ -7,8 +7,9 @@ Run them on such a machine with
 
 (``--noconftest``: the suite's conftest imports JAX, which these tests do
 not need.)
-The library is built with --fmad=false, so the intersection kernels and
-their plain versions must agree bit for bit. The gather kernel (B3) and
+The library is built with --fmad=false, so the intersection kernels (B1,
+B2) and the BVH traversal (B5) and their plain versions must agree bit
+for bit. The gather kernel (B3) and
 the vertex-merge kernel (B4) sum the same terms as their plain versions in
 another order: rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and
 tables.
@@ -203,4 +204,58 @@ def test_vcm_launch_counts_and_cpu_agreement(cuda):
     assert counts == [2 * (2 * L - 1), 2 * ((L - 1) + L + L * (L - 1)),
                       2 * L]
     assert np.isfinite(imgs[1]).all()
+    assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
+
+
+@pytest.mark.parametrize("name", ["Atrium:0.25", "Conference:0.15"])
+@pytest.mark.parametrize("n", [131, 65536])
+def test_bvh_kernels_equal_plain_versions(cuda, name, n):
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    scene, _ = get_scene_by_name(name, cuda)
+    o, d, tmin, tmax = chip_smoke._rays(n, n + 7, scene.aabb_min.tolist(),
+                                        scene.aabb_max.tolist(), cuda)
+    before = bk.traverse.launches
+    got = bk.traverse(scene.bvh, o, d, tmin, tmax)
+    assert bk.traverse.launches == before + 1
+    want = bk.traverse_plain(scene.bvh, o, d, tmin, tmax)
+    for a, b in zip(got, want):
+        assert chip_smoke._bits_differ(a, b) == 0
+    dead = ~(tmax > tmin)
+    assert not bool(got[4][dead].any()) and bool(got[4].any())
+    assert torch.equal(bk.traverse_any(scene.bvh, o, d, tmin, tmax),
+                       bk.traverse_any_plain(scene.bvh, o, d, tmin, tmax))
+
+
+def test_bvh_wrapper_rejects_bad_inputs(cuda):
+    import dataclasses
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    scene, _ = get_scene_by_name("Atrium:0.1", cuda)
+    o, d, tmin, tmax = rays(64, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        bk.traverse(scene.bvh, o.double(), d, tmin, tmax)
+    deep = dataclasses.replace(scene.bvh,
+                               max_stack=bk.KERNEL_MAX_STACK + 1)
+    with pytest.raises(ValueError, match="stack"):
+        bk.traverse_any(deep, o, d, tmin, tmax)
+
+
+def test_bvh_render_on_the_card_matches_the_cpu_render(cuda):
+    """PT on a BVH scene: B5 on the card, its plain version on the CPU;
+    textured materials on both."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    cfg = RenderConfig(width=32, height=32)
+    imgs = []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("Atrium:0.1", dev)
+        counts = (bk.traverse.launches, bk.traverse_any.launches,
+                  ik.closest_hit_tris.launches)
+        imgs.append(Renderer(scene, cam, cfg, seed=1).render(
+            2).mean_radiance().cpu().numpy())
+        counts = [w.launches - c for w, c in zip(
+            (bk.traverse, bk.traverse_any, ik.closest_hit_tris), counts)]
+    assert counts == [2 * cfg.pt_max_segments,
+                      2 * cfg.pt_max_segments * cfg.pt_shadow_samples, 0]
+    assert np.isfinite(imgs[1]).all()
+    agree = np.isclose(imgs[1], imgs[0], rtol=1e-3, atol=0).all(axis=-1)
+    assert agree.mean() >= 0.99
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)

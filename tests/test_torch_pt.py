@@ -157,10 +157,26 @@ def test_config_validation_and_later_slices():
     with pytest.raises(ValueError):
         RenderConfig(pt_shadow_samples=-1)
     assert RenderConfig(pt_direct_light_sampling=False).pt_max_segments == 10
+    # BVH scenes are in; scene files still belong to a later slice
+    with pytest.raises(NotImplementedError, match="scene-import slice"):
+        get_scene_by_name("conference.obj")
+    # the stochastic hash and the kd-tree wait for a later PPM slice
+    from oppositerenderer_tpu_torch.config import PhotonMapStructure
+    r = small_renderer(
+        render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
+        photon_map_structure=PhotonMapStructure.STOCHASTIC_HASH)
+    with pytest.raises(NotImplementedError, match="stochastic hash"):
+        r.render(1)
+    # a BVH deeper than the kernel's stack is refused on every device
+    import dataclasses
+    from oppositerenderer_tpu_torch.accel import bvh_kernels
+    from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
     r = small_renderer(
         render_method=RenderMethod.VCM_BIDIRECTIONAL_PATH_TRACING)
-    r.scene.bvh = object()
-    with pytest.raises(NotImplementedError, match="BVH slice"):
+    r.scene, bvh = build_scene_bvh(r.scene)
+    r.scene.bvh = dataclasses.replace(
+        bvh, max_stack=bvh_kernels.KERNEL_MAX_STACK + 1)
+    with pytest.raises(ValueError, match="stack"):
         r.render(1)
 
 

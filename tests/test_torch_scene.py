@@ -80,11 +80,16 @@ def test_scene_and_camera_fields_match_jax(name):
 
 
 def test_unknown_and_later_slice_inputs_raise():
-    with pytest.raises(NotImplementedError, match="BVH slice"):
-        get_scene_by_name("Atrium")
+    """Scene files and media belong to later slices of the port; Atrium,
+    Conference and textured scenes are in (tests/test_torch_bvh_scenes.py,
+    tests/test_torch_texture.py)."""
+    with pytest.raises(NotImplementedError, match="scene-import slice"):
+        get_scene_by_name("sponza.dae")
     jl = leaves(jax_scene("CornellSmall")[0])
     jl["textures"] = np.zeros((1, 4, 4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="texture slice"):
+    assert interop.scene_from_numpy(jl).has_textures
+    jl["medium"] = {"sigma_s": np.float32(0.5)}
+    with pytest.raises(NotImplementedError, match="media slice"):
         interop.scene_from_numpy(jl)
     with pytest.raises(ValueError):
         interop.key_from_numpy(np.zeros(3, np.uint32))
