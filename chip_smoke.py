@@ -4,6 +4,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+or, to time an earlier tree's B4 and B5 in turns with this one's (phase
+parent-ab), with that tree's kernel sources unpacked under a directory
+(``git archive <commit> oppositerenderer_tpu_torch/csrc``):
+
+    python3 chip_smoke.py --parent _chip_tree/parent
+
 Phases, in order, one line (or a few) of output each; any failure raises
 and the script exits non-zero without printing the result line:
 
@@ -23,23 +29,30 @@ and the script exits non-zero without printing the result line:
                  random u_rows (row and chunk subsampling), and the grid and
                  hitpoints of one CornellSmall 512^2 PPM iteration with 1<<20
                  photons; stats equal, sums within rtol 1e-4 + 1e-6 max|ref|.
-                 B4 on three inputs: the synthetic case of
-                 tests/test_vcm_vm.py, its clustered variant with random
-                 u_rows, and the vertex grid and second-bounce camera
-                 vertices of one CornellSmall 512^2 VCM+VM iteration; query
-                 order and slot tables equal to the CPU's, both sums within
-                 rtol 1e-4 + 1e-6 max|ref|. B5 (closest and any hit) bit for
-                 bit on four inputs: 65,536 random rays in full Atrium's
-                 box (a quarter dead), every traversal call of one Atrium
+                 B4 on the synthetic case of tests/test_vcm_vm.py, its
+                 clustered variant with random u_rows, and the vertex grid
+                 and camera vertices of every merge round (camera bounce)
+                 of one CornellSmall 512^2 VCM+VM iteration; query order
+                 and slot tables equal to the CPU's, both sums within rtol
+                 1e-4 + 1e-6 max|ref|. B5 (closest and any hit) bit for
+                 bit on random rays in full Atrium's box (a quarter dead,
+                 all dead, all live), every traversal call of one Atrium
                  512^2 PT iteration (262,144 lanes a call) and of one
                  Conference 1024^2 PT iteration (1,048,576 lanes), and
-                 random rays in CornellSmall with a BVH; prints the rows,
-                 slab tests and triangle tests of each ray. Times kernels
-                 and plain versions with CUDA events, and each kernel's
-                 bound (the least time of the card for the same work: for
-                 B3/B4 the pairs each query needs, for B5 the tests and row
+                 random rays in CornellSmall with a BVH, its live-lane
+                 compaction against its plain version on each; prints the
+                 rows, slab tests and triangle tests of each ray. Times
+                 kernels (medians of 20 samples of 10 calls in a row) and
+                 plain versions with CUDA events, B4 on every
+                 merge round and B5 on every call of both iterations (the
+                 sums: per-iteration kernel ms), and each kernel's bound
+                 (the least time of the card for the same work: for B3/B4
+                 the pairs each query needs, for B5 the tests and row
                  floats the traversal needs, from the plain version's
-                 counts).
+                 counts). With ``--parent``: phase parent-ab, the earlier
+                 tree's B4 and B5 built by the same nvcc call and timed in
+                 turns with this tree's on every call of those iterations,
+                 their outputs compared.
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -84,6 +97,8 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -140,6 +155,7 @@ MAIN_SIZE = 512
 MAIN_ITERS = 20
 MAIN_REPS = 3
 TIMING_REPS = 20
+LAUNCHES_PER_SAMPLE = 10   # cuda_ms: calls per timed sample of a kernel
 # bench.py:232-235: the PPM case runs max(2, iterations // 4) iterations
 PPM_MAIN_PHOTONS = 1 << 20
 PPM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
@@ -318,8 +334,13 @@ def query_pairs(grid, qpos, radius, starts, lens, valid=None) -> int:
     return int(torch.where(in_box, overlap.clamp_min(0), 0).sum())
 
 
-def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events."""
+def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3,
+            batch: int = LAUNCHES_PER_SAMPLE) -> float:
+    """Device time of one call of ``fn`` in ms: the median over ``reps``
+    samples, each the CUDA-event time of ``batch`` calls in a row divided
+    by ``batch``, so that the host's enqueue of a call (the wrapper's
+    checks and allocations) overlaps the device's work on the one before
+    instead of being timed as device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -328,10 +349,11 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -453,12 +475,13 @@ def phase_kernels(dev) -> dict:
                     cuda_ms(lambda: ik.closest_hit_tris(o, d, tmin, tmax,
                                                         tri9)),
                     cuda_ms(lambda: ik.closest_hit_tris_plain(o, d, tmin,
-                                                              tmax, tri9))),
+                                                              tmax, tri9),
+                            batch=1)),
                 "occluded_tris": (
                     cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, tri9,
                                                      occ_mask)),
                     cuda_ms(lambda: ik.occluded_tris_plain(
-                        o, d, tmin, tmax, tri9, occ_mask)))}
+                        o, d, tmin, tmax, tri9, occ_mask), batch=1))}
             timing = "; ms kernel/plain " + ", ".join(
                 f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in ms.items())
             if name == MAIN_SCENE:   # the main path's shape
@@ -581,11 +604,11 @@ def gather_kernel_cases(dev) -> dict:
             _to(grid, "cpu"), q.cpu(), r.cpu() if torch.is_tensor(r) else r,
             u.cpu(), None if valid is None else valid.cpu())
         for name, a, b in zip(("starts", "lens", "weights", "visited",
-                               "total"), tables, cpu_tables):
+                               "total", "rows"), tables, cpu_tables):
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"B3 {label}: the card's {name} table "
                                      "differs from the CPU's")
-        starts, lens, weights, visited, total = tables
+        starts, lens, weights, visited, total, _ = tables
         r2 = torch.square(torch.as_tensor(r, dtype=torch.float32,
                                           device=dev))
         args = (starts, lens, weights, r2, q, qn, grid.position, grid.power,
@@ -619,7 +642,7 @@ def gather_kernel_cases(dev) -> dict:
             out["ms"] = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
             out["plain_ms"] = cuda_ms(
                 lambda: gk.gather_photons_tiled_plain(*args),
-                reps=PLAIN_GATHER_REPS, warmup=1)
+                reps=PLAIN_GATHER_REPS, warmup=1, batch=1)
             timing += (f"; ms kernel {out['ms']:.4f} (median of "
                        f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
                        f"(median of {PLAIN_GATHER_REPS})")
@@ -738,10 +761,11 @@ def vm_case(dev, seed: int = 0, cluster: bool = False):
 
 
 def vcm_merge_inputs(dev):
-    """The merge's inputs at the second camera bounce of one CornellSmall
-    512^2 VCM+VM iteration (iteration 0, seed 0, the bench's VCM+VM
+    """The merge's inputs at every camera bounce of one CornellSmall 512^2
+    VCM+VM iteration (iteration 0, seed 0, the bench's VCM+VM
     configuration), recorded where ``integrators/vcm._merge_vertices``
-    calls the tile merge. Returns (cfg, kwargs with ``u_rows``)."""
+    calls the tile merge. Returns (cfg, [kwargs with ``u_rows``] in call
+    order)."""
     from oppositerenderer_tpu_torch.integrators import vcm
     from oppositerenderer_tpu_torch.renderer import Renderer
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
@@ -754,12 +778,11 @@ def vcm_merge_inputs(dev):
 
     def record(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM, cam_dVM,
                active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1):
-        if depth1 == 2:
-            calls.append(dict(
-                vgrid=vgrid, cam_bsdf=cam_bsdf, cam_pos=cam_pos,
-                cam_thr=cam_thr, cam_dVCM=cam_dVCM, cam_dVM=cam_dVM,
-                active=active, radius_sq=radius_sq, mis_vc_w=mis_vc_w,
-                n_light_paths=n_light_paths, u_rows=u_rows, depth1=depth1))
+        calls.append(dict(
+            vgrid=vgrid, cam_bsdf=cam_bsdf, cam_pos=cam_pos,
+            cam_thr=cam_thr, cam_dVCM=cam_dVCM, cam_dVM=cam_dVM,
+            active=active, radius_sq=radius_sq, mis_vc_w=mis_vc_w,
+            n_light_paths=n_light_paths, u_rows=u_rows, depth1=depth1))
         return merge(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
                      cam_dVM, active, radius_sq, mis_vc_w, n_light_paths,
                      u_rows, depth1)
@@ -769,8 +792,10 @@ def vcm_merge_inputs(dev):
         r.compute_iteration(0)
     finally:
         vcm.merge_vertices_tiled = merge
-    (call,) = calls
-    return cfg, call
+    if len(calls) != cfg.vcm_max_path_length:
+        raise AssertionError(f"{len(calls)} merge rounds in one VCM+VM "
+                             f"iteration, expected {cfg.vcm_max_path_length}")
+    return cfg, calls
 
 
 def _to(obj, device):
@@ -787,11 +812,28 @@ def _to(obj, device):
     return obj
 
 
+def vm_bound(k, args) -> tuple[dict, int]:
+    """B4's bound on one merge round, and the pairs it needs: each valid
+    query (a 128-byte table row, two float3 sums out) against the staged
+    vertices (52 bytes of fields) in its own cell box; the slot tables
+    (16 bytes a slot) once."""
+    starts, lens, _, _, scal, qtab, vgrid = args
+    pairs = query_pairs(k["vgrid"], qtab[:, 0:3], torch.sqrt(scal[0]),
+                        starts, lens, qtab[:, 24] > 0.5)
+    n_v = vgrid.packed.shape[0]
+    return bound(covered_rows(starts, lens, n_v) * 52
+                 + qtab.shape[0] * (128 + 24) + starts.numel() * 16,
+                 pairs * PAIR_FLOPS), pairs
+
+
 def vm_kernel_cases(dev) -> dict:
     """B4 against its plain version on the card: the query order and slot
     tables computed on the card must equal those computed on the CPU, and
     each of the kernel's two sums the plain version's within VM_RTOL +
-    VM_ATOL_REL * max|ref|."""
+    VM_ATOL_REL * max|ref|; on the synthetic cases and on every merge
+    round of one CornellSmall 512^2 VCM+VM iteration. The second bounce is
+    the timed shape (against the plain version too); every round is timed,
+    and the sum is the kernel's time per iteration."""
     from oppositerenderer_tpu_torch.accel import vm_kernels as vk
     cases = []
     for label, cluster in (("synthetic", False), ("clustered", True)):
@@ -800,8 +842,9 @@ def vm_kernel_cases(dev) -> dict:
         k["u_rows"] = k.pop("u_stride").reshape(n // vk.TILE, vk.TILE)[
             :, :vk.ROWS + 2]
         cases.append((label, cfg, k))
-    cfg, k = vcm_merge_inputs(dev)
-    cases.append((f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM+VM bounce 2", cfg, k))
+    cfg, rounds = vcm_merge_inputs(dev)
+    cases += [(f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM+VM bounce {k['depth1']}",
+               cfg, k) for k in rounds]
 
     def tables(cfg, k):
         return vk.merge_tables(
@@ -810,12 +853,13 @@ def vm_kernel_cases(dev) -> dict:
             k["u_rows"], k["depth1"])
 
     out = {"max_abs_err": 0.0}
-    for i, (label, cfg, k) in enumerate(cases):
+    it = {"calls": 0, "ms": 0.0, "bound_ms": 0.0, "pairs": 0, "staged": 0}
+    for label, cfg, k in cases:
         order, args, _, _ = tables(cfg, k)
         cpu_order, cpu_args, _, _ = tables(cfg, _to(k, "cpu"))
         for name, a, b in (("order", order, cpu_order),
-                           *zip(("starts", "lens", "weights"), args[:3],
-                                cpu_args[:3])):
+                           *zip(("starts", "lens", "weights", "rows"),
+                                args[:4], cpu_args[:4])):
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"B4 {label}: the card's {name} "
                                      "differs from the CPU's")
@@ -835,37 +879,53 @@ def vm_kernel_cases(dev) -> dict:
                     f"{float(err.max()):.3g} (max |ref| {scale:.3g})")
             errs.append(float(err.max()))
             scales.append(scale)
-        if scales[0] <= 0.0:
+        if label.startswith(("synthetic", "clustered")) and scales[0] <= 0.0:
             raise AssertionError(f"B4 {label}: no merge energy")
         out["max_abs_err"] = max(out["max_abs_err"], *errs)
+        lens, qtab = args[1], args[5]
         timing = ""
-        if i == len(cases) - 1:   # the main path's shape
-            # each valid query (a 128-byte table row, two float3 sums out)
-            # against the staged vertices (52 bytes) in its own cell box
-            lens_, n_q, n_v = args[1], args[4].shape[0], args[5].shape[0]
-            pairs = query_pairs(k["vgrid"], args[4][:, 0:3],
-                                torch.sqrt(args[3][0]), args[0], lens_,
-                                args[4][:, 24] > 0.5)
-            out.update(bound(
-                covered_rows(args[0], lens_, n_v) * 52 + n_q * (128 + 24)
-                + args[0].numel() * 12, pairs * PAIR_FLOPS))
-            timing = (f"; pairs needed {pairs} of "
-                      f"{int(lens_.long().sum()) * vk.TILE} staged")
-            out["ms"] = cuda_ms(lambda: vk.merge_vertices_tiled_kernel(*args))
-            out["plain_ms"] = cuda_ms(
-                lambda: vk.merge_vertices_tiled_plain(*args),
-                reps=PLAIN_VM_REPS, warmup=1)
-            timing += (f"; ms kernel {out['ms']:.4f} (median of "
-                       f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
-                       f"(median of {PLAIN_VM_REPS})")
-        lens = args[1]
-        print(f"[kernels] B4 {label}: queries={args[4].shape[0]} (valid "
-              f"{int((args[4][:, 24] > 0.5).sum())}) vertices="
-              f"{args[5].shape[0]}, staged {int(lens.sum())}, slots "
+        if "VCM+VM" in label:   # the main path's rounds
+            b, pairs = vm_bound(k, args)
+            ms = cuda_ms(lambda: vk.merge_vertices_tiled_kernel(*args))
+            staged = int(lens.long().sum()) * vk.TILE
+            it["calls"] += 1
+            it["ms"] += ms
+            it["bound_ms"] += b["bound_ms"]
+            it["pairs"] += pairs
+            it["staged"] += staged
+            timing = (f"; pairs needed {pairs} of {staged} staged; ms kernel "
+                      f"{ms:.4f} (median of {TIMING_REPS}), bound "
+                      f"{b['bound_ms']:.4f} ({b['bound_by']})")
+            if k["depth1"] == 2:   # the timed shape of earlier PRs
+                out.update(b)
+                out["ms"] = ms
+                out["plain_ms"] = cuda_ms(
+                    lambda: vk.merge_vertices_tiled_plain(*args),
+                    reps=PLAIN_VM_REPS, warmup=1, batch=1)
+                timing += (f" / plain {out['plain_ms']:.4f} (median of "
+                           f"{PLAIN_VM_REPS})")
+        print(f"[kernels] B4 {label}: queries={qtab.shape[0]} (valid "
+              f"{int((qtab[:, 24] > 0.5).sum())}) vertices="
+              f"{args[6].packed.shape[0]}, staged {int(lens.sum())}, slots "
               f"subsampled {int((args[2] > 1.0).sum())}; tables equal, sums "
               f"within tolerance (max |err| out1 {errs[0]:.3g} of "
               f"{scales[0]:.4g}, out2 {errs[1]:.3g} of {scales[1]:.4g})"
               f"{timing}")
+    # the packed records, built once per grid: its fields read, the
+    # records written
+    g = rounds[0]["vgrid"]
+    fields = {f: getattr(g, f) for f in vk.VERTEX_FIELDS}
+    cell = g.packed[:, 13].long()   # the x cells: a stand-in of the same size
+    pack_ms = cuda_ms(lambda: vk.pack_vertex_records(
+        **fields, cell=cell, resolution=g.resolution))
+    pack_b = bound(g.packed.shape[0] * (52 + 4 * vk.RECORD), 0)
+    it.update(pack_ms=pack_ms, pack_bound_ms=pack_b["bound_ms"])
+    it["bound_ms"] += pack_b["bound_ms"]
+    out["per_iteration"] = {f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM+VM": it}
+    print(f"[kernels] B4 per VCM+VM iteration: {it['calls']} launches "
+          f"{it['ms']:.4f} ms, packing the grid {pack_ms:.4f} ms; bound "
+          f"{it['bound_ms']:.4f} ms (packing {pack_b['bound_ms']:.4f}); "
+          f"pairs needed {it['pairs']} of {it['staged']} staged")
     return out
 
 
@@ -917,13 +977,26 @@ def bvh_bound(bvh, n: int, any_hit: bool, visits, row_floats) -> dict:
                  + float(visits[:, 3].sum()) * MT_FLOPS)
 
 
+def dead_or_live(rays, live: bool):
+    """The same rays with every lane dead (tmax = tmin, or below it) or
+    every lane live (the dead ones unbounded)."""
+    o, d, tmin, tmax = rays
+    if live:
+        return o, d, tmin, torch.where(tmax > tmin, tmax, 1e30)
+    odd = torch.arange(tmax.shape[0], device=tmax.device) % 2 == 1
+    return o, d, tmin, torch.where(odd, tmin - 1.0, tmin)
+
+
 def bvh_kernel_cases(dev) -> dict:
     """B5 (closest and any hit) against its plain version on the card, bit
-    for bit: random rays in full Atrium's box, every traversal call of one
-    Atrium 512^2 and one Conference 1024^2 PT iteration (each scene's full
-    table at its main path's lane count), and random rays in CornellSmall
-    with a BVH. The timed and bounded shapes are Atrium's main path's: its
-    primary rays and first shadow rays; Conference's are timed too."""
+    for bit: random rays in full Atrium's box (a quarter dead, then all
+    dead and all live), every traversal call of one Atrium 512^2 and one
+    Conference 1024^2 PT iteration (each scene's full table at its main
+    path's lane count), and random rays in CornellSmall with a BVH; on
+    every input the live-lane compaction finds the lanes its plain version
+    finds. The timed and bounded shapes are Atrium's main path's: its
+    primary rays and first shadow rays; every call of both iterations is
+    timed, and the sums are the kernels' times per iteration."""
     from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
     from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
@@ -935,23 +1008,34 @@ def bvh_kernel_cases(dev) -> dict:
                             ("Conference", CONFERENCE_SIZE, False)):
         scene, cam = get_scene_by_name(name, dev)
         closest_calls, any_calls = pt_traversal_calls(scene, cam, size)
+        it = f"{name} {size}^2"
         if name == "Atrium":
-            cases.append(("Atrium random", scene.bvh,
-                          _rays(65536, 300, scene.aabb_min.tolist(),
-                                scene.aabb_max.tolist(), dev), None, False))
-        cases += [(f"{name} {size}^2 PT segment {i} closest", scene.bvh,
-                   list(c), "traverse" if i == 0 else None, key)
+            rays = _rays(65536, 300, scene.aabb_min.tolist(),
+                         scene.aabb_max.tolist(), dev)
+            cases += [("Atrium random", scene.bvh, rays, None, False, None),
+                      ("Atrium random all dead", scene.bvh,
+                       dead_or_live(rays, False), None, False, None),
+                      ("Atrium random all live", scene.bvh,
+                       dead_or_live(rays, True), None, False, None)]
+        cases += [(f"{it} PT segment {i} closest", scene.bvh, list(c),
+                   "traverse" if i == 0 else None, key, it)
                   for i, c in enumerate(closest_calls)]
-        cases += [(f"{name} {size}^2 PT segment {i} shadow", scene.bvh,
-                   list(c), "traverse_any" if i == 0 else None, key)
+        cases += [(f"{it} PT segment {i} shadow", scene.bvh, list(c),
+                   "traverse_any" if i == 0 else None, key, it)
                   for i, c in enumerate(any_calls)]
     cases.append((f"{MAIN_SCENE} with a BVH random", cbvh,
                   _rays(MAIN_SIZE * MAIN_SIZE, 301, cornell.aabb_min.tolist(),
-                        cornell.aabb_max.tolist(), dev), None, False))
-    out = {"traverse": {"max_abs_err": 0.0},
-           "traverse_any": {"max_abs_err": 0.0}}
-    for label, bvh, (o, d, tmin, tmax), timed, key in cases:
+                        cornell.aabb_max.tolist(), dev), None, False, None))
+    out = {"traverse": {"max_abs_err": 0.0, "per_iteration": {}},
+           "traverse_any": {"max_abs_err": 0.0, "per_iteration": {}}}
+    for label, bvh, (o, d, tmin, tmax), timed, key, it in cases:
         n = o.shape[0]
+        got_c = bk.compact_live(tmin, tmax)
+        want_c = bk.compact_live_plain(tmin, tmax)
+        if not all(torch.equal(a, b) for a, b in zip(got_c, want_c)):
+            raise AssertionError(f"B5's live-lane compaction differs from "
+                                 f"its plain version on {label}")
+        c = int(want_c[1].sum())
         kinds = ("traverse_any",) if "shadow" in label else (
             ("traverse",) if "closest" in label else ("traverse",
                                                       "traverse_any"))
@@ -972,7 +1056,7 @@ def bvh_kernel_cases(dev) -> dict:
                         f"B5 {k} differs from its plain version on {label}:"
                         f" {field} differs in {bad} of {n} rays")
             live = tmax > tmin
-            vis = visits[live].double()
+            vis = visits[live].double() if c else torch.zeros((1, 4))
             b = bvh_bound(bvh, n, any_hit, visits, row_floats)
             line = (f"{k}: equal bit for bit ({int(found.sum())} of "
                     f"{int(live.sum())} live rays {'blocked' if any_hit else 'hit'}); "
@@ -983,22 +1067,32 @@ def bvh_kernel_cases(dev) -> dict:
                     f"{int((row_floats > 0).sum())} of {bvh.rows.shape[0]} "
                     f"rows read, {4 * int(row_floats.sum())} bytes of them "
                     f"used; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            if timed == k:
+            if it is not None:   # a call of a main path's iteration
                 fn = getattr(bk, k)
                 ms = cuda_ms(lambda: fn(bvh, o, d, tmin, tmax))
                 line += f"; ms kernel {ms:.4f} (median of {TIMING_REPS})"
-                if key:
+                acc = out[k]["per_iteration"].setdefault(
+                    it, {"calls": 0, "ms": 0.0, "bound_ms": 0.0})
+                acc["calls"] += 1
+                acc["ms"] += ms
+                acc["bound_ms"] += b["bound_ms"]
+                if timed == k and key:
                     plain = bk.traverse_any_plain if any_hit else \
                         bk.traverse_plain
                     out[k].update(b)
                     out[k]["ms"] = ms
                     out[k]["plain_ms"] = cuda_ms(
                         lambda: plain(bvh, o, d, tmin, tmax),
-                        reps=PLAIN_BVH_REPS, warmup=1)
+                        reps=PLAIN_BVH_REPS, warmup=1, batch=1)
                     line += (f" / plain {out[k]['plain_ms']:.4f} (median of "
                              f"{PLAIN_BVH_REPS})")
             lines.append(line)
         print(f"[kernels] B5 {label}: rays={n}; " + "; ".join(lines))
+    for k in ("traverse", "traverse_any"):
+        for it, acc in out[k]["per_iteration"].items():
+            print(f"[kernels] B5 {k} per {it} PT iteration: {acc['calls']} "
+                  f"launches {acc['ms']:.4f} ms, bound {acc['bound_ms']:.4f}"
+                  " ms")
     return out
 
 
@@ -1298,7 +1392,7 @@ def profile_iteration(r, tag: str) -> None:
           f"{1.0 - busy_ms / wall_ms:.4f} under the profiler); host ms per "
           "range " + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()))
     ours = ("closest_hit_tris_kernel", "occluded_tris_kernel",
-            "vm_tiled_kernel", "bvh_kernel")
+            "vm_tiled_kernel", "vm_reduce_kernel", "bvh_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     top += [kv for kv in by_name.items()
             if any(k in kv[0] for k in ours) and kv not in top]
@@ -1442,6 +1536,149 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
     return launches
 
 
+# The parent tree's B4/B5 entry points (their argument types), for a
+# same-call comparison with ``--parent``: one launch each, no scratch.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PARENT_ENTRY_POINTS = {
+    "merge_vertices_tiled": [_P] * 12 + [_I] + [_P] * 3,
+    "bvh_closest": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 6,
+    "bvh_any": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 2,
+}
+
+
+def parent_library(parent: Path) -> ctypes.CDLL:
+    """The parent tree's kernels, built by this tree's nvcc call into
+    ``<parent>/_build_parent``."""
+    from oppositerenderer_tpu_torch.accel import cuda_build
+    srcs = sorted((parent / "oppositerenderer_tpu_torch" / "csrc").glob(
+        "*.cu"))
+    out = parent / "_build_parent" / "kernels.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                           str(out), *map(str, srcs)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent tree:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            print(f"[parent-ab] parent build: {line.strip()}")
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in PARENT_ENTRY_POINTS.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = _I
+    return lib
+
+
+def in_turns(old, new) -> tuple[float, float]:
+    """CUDA-event medians of the parent's and this tree's launch in turns
+    (parent, this, this, parent): the mean of each pair."""
+    a, b, c, e = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+    return (a + e) / 2, (b + c) / 2
+
+
+def phase_parent_ab(dev, parent: Path) -> dict:
+    """B4 and B5 of the parent tree against this tree's, in one call on one
+    card, on every call of one CornellSmall 512^2 VCM+VM iteration (B4) and
+    of one Atrium 512^2 and Conference 1024^2 PT iteration (B5): each pair
+    of launches timed in turns, the outputs compared (B5 bit for bit, B4
+    within VM_RTOL). Returns, per kernel, the parent's and this tree's ms
+    at the timed shapes and summed over the iteration."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel import vm_kernels as vk
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    lib = parent_library(parent)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def check(rc, name):
+        if rc != 0:
+            raise RuntimeError(f"the parent's {name} failed: cudaError {rc}")
+
+    out = {}
+    cfg, rounds = vcm_merge_inputs(dev)
+    acc = out["merge_vertices_tiled"] = {"parent_iteration_ms": 0.0,
+                                         "iteration_ms": 0.0}
+    for k in rounds:
+        _, args, _, _ = vk.merge_tables(
+            k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
+            k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"],
+            k["u_rows"], k["depth1"])
+        starts, lens, weights, rows, scal, qtab, g = args
+        o1 = torch.empty((qtab.shape[0], 3), device=dev)
+        o2 = torch.empty_like(o1)
+
+        def old():
+            check(lib.merge_vertices_tiled(
+                *(a.data_ptr() for a in (
+                    starts, lens, weights, scal, qtab, g.position, g.wo,
+                    g.throughput, g.dVCM, g.dVM, g.cont, g.depth)),
+                starts.shape[0], o1.data_ptr(), o2.data_ptr(), stream()),
+                "merge_vertices_tiled")
+
+        old()
+        new1, new2 = vk.merge_vertices_tiled_kernel(*args)
+        for a, b in ((o1, new1), (o2, new2)):
+            scale = float(a.abs().max())
+            if not torch.allclose(b, a, rtol=VM_RTOL,
+                                  atol=VM_ATOL_REL * scale):
+                raise AssertionError(f"B4 bounce {k['depth1']}: this tree's "
+                                     "sums differ from the parent's")
+        t_old, t_new = in_turns(old,
+                                lambda: vk.merge_vertices_tiled_kernel(*args))
+        acc["parent_iteration_ms"] += t_old
+        acc["iteration_ms"] += t_new
+        if k["depth1"] == 2:
+            acc.update(parent_ms=t_old, ms=t_new)
+        print(f"[parent-ab] B4 bounce {k['depth1']}: parent {t_old:.4f} ms, "
+              f"this tree {t_new:.4f} ms (in turns, medians of "
+              f"{TIMING_REPS})")
+
+    for name, size in (("Atrium", ATRIUM_SIZE),
+                       ("Conference", CONFERENCE_SIZE)):
+        scene, cam = get_scene_by_name(name, dev)
+        bvh = scene.bvh
+        calls = pt_traversal_calls(scene, cam, size)
+        for kname, entry, kcalls in (("traverse", "bvh_closest", calls[0]),
+                                     ("traverse_any", "bvh_any", calls[1])):
+            acc = out.setdefault(kname, {}).setdefault(
+                f"{name} {size}^2", {"parent_iteration_ms": 0.0,
+                                     "iteration_ms": 0.0})
+            fn = getattr(bk, kname)
+            for i, (o, d, tmin, tmax) in enumerate(kcalls):
+                n = o.shape[0]
+                outs = ((torch.empty(n, device=dev),
+                         torch.empty(n, dtype=torch.int32, device=dev),
+                         torch.empty(n, device=dev),
+                         torch.empty(n, device=dev))
+                        if kname == "traverse" else ()) + (
+                    torch.empty(n, dtype=torch.bool, device=dev),)
+
+                def old():
+                    check(getattr(lib, entry)(
+                        bvh.rows.data_ptr(), bvh.rows.shape[0],
+                        bvh.root_code, bvh.leaf_size, o.data_ptr(),
+                        d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+                        *(a.data_ptr() for a in outs), stream()), entry)
+
+                old()
+                got = fn(bvh, o, d, tmin, tmax)
+                got = got if kname == "traverse" else (got,)
+                if any(_bits_differ(a, b) for a, b in zip(outs, got)):
+                    raise AssertionError(f"B5 {kname} {name} segment {i}: "
+                                         "this tree differs from the parent")
+                t_old, t_new = in_turns(
+                    old, lambda: fn(bvh, o, d, tmin, tmax))
+                acc["parent_iteration_ms"] += t_old
+                acc["iteration_ms"] += t_new
+                if i == 0:
+                    acc.update(parent_ms=t_old, ms=t_new)
+                print(f"[parent-ab] B5 {kname} {name} {size}^2 segment {i}: "
+                      f"parent {t_old:.4f} ms, this tree {t_new:.4f} ms")
+    for k, v in out.items():
+        print(f"[parent-ab] {k}: {json.dumps(v)}")
+    return out
+
+
 def timed(tag: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1451,12 +1688,21 @@ def timed(tag: str, fn, *args):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an unpacked earlier tree: time its B4/B5 in turns "
+                         "with this tree's (phase parent-ab)")
+    args = ap.parse_args()
     name = phase_device()   # first: no CUDA device, no result
     dev = torch.device("cuda", 0)
     # the plain versions' products in full float32, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     kernels = timed("kernels", phase_kernels, dev)
+    if args.parent is not None:
+        ab = timed("parent-ab", phase_parent_ab, dev, args.parent)
+        for k, v in ab.items():
+            kernels[k]["parent_ab"] = v
     phase_goldens(dev)
     launches = {k: 0 for k in KERNELS}
     launches.update(phase_main(dev))

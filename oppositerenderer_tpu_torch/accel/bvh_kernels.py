@@ -7,8 +7,11 @@ traversal) and the JAX package's wavefront ``accel/bvh.traverse``/
 ``Bvh.rows`` table (``accel/bvh.py``) with one stack per ray. For CUDA
 tensors they launch the hand-written kernel of ``csrc/bvh.cu``; for CPU
 tensors they run the plain versions ``traverse_plain`` and
-``traverse_any_plain``. Each wrapper counts its kernel launches in a
-``launches`` attribute.
+``traverse_any_plain``. Each wrapper counts its traversal launches in a
+``launches`` attribute. On the card each block of the kernel first
+compacts the live lanes (``tmax > tmin``) of its 128 lanes and its
+threads walk only those; :func:`compact_live` runs that compaction alone
+(its plain version :func:`compact_live_plain`) so that it can be checked.
 
 The plain version is the JAX wavefront's float32 loop (``bvh._run_until``)
 as a masked lockstep loop in torch over the live lanes: a gathered
@@ -41,6 +44,7 @@ BIG = 1e30
 KERNEL_MAX_STACK = 32
 KERNEL_ARITY = 8
 ROW_WIDTH = 128
+COMPACT_BLOCK = 128   # lanes per block of the kernel (csrc/bvh.cu kBlock)
 
 
 def _check(bvh, o, d, tmin, tmax):
@@ -269,6 +273,47 @@ def _launch(name, bvh, o, d, tmin, tmax, outs):
                bvh.leaf_size, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
                tmax.data_ptr(), o.shape[0], *(a.data_ptr() for a in outs),
                torch.cuda.current_stream().cuda_stream)
+
+
+def compact_live_plain(tmin, tmax):
+    """Plain version of the kernel's lane compaction: the lanes in blocks
+    of COMPACT_BLOCK; returns (live [B * COMPACT_BLOCK] int32, counts [B]
+    int32), B = ceil(N / COMPACT_BLOCK): block b's lanes with
+    ``tmax > tmin``, ascending, at ``live[b * COMPACT_BLOCK:][:counts[b]]``
+    and -1 after them."""
+    n = tmin.shape[0]
+    nb = -(-n // COMPACT_BLOCK)
+    live = torch.zeros(nb * COMPACT_BLOCK, dtype=torch.bool,
+                       device=tmin.device)
+    live[:n] = tmax > tmin
+    live = live.reshape(nb, COMPACT_BLOCK)
+    counts = live.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(live, dim=1) - 1 + torch.arange(
+        nb, device=tmin.device)[:, None] * COMPACT_BLOCK
+    out = torch.full((nb * COMPACT_BLOCK,), -1, dtype=torch.int32,
+                     device=tmin.device)
+    out[pos[live]] = torch.arange(nb * COMPACT_BLOCK, dtype=torch.int32,
+                                  device=tmin.device)[live.reshape(-1)]
+    return out, counts
+
+
+def compact_live(tmin, tmax):
+    """The lane compaction every traversal launch does first, alone, in
+    the format of :func:`compact_live_plain`. The plain version for CPU
+    tensors."""
+    if tmin.device.type == "cpu":
+        return compact_live_plain(tmin, tmax)
+    n = tmin.shape[0]
+    nb = -(-n // COMPACT_BLOCK)
+    live = torch.full((nb * COMPACT_BLOCK,), -1, dtype=torch.int32,
+                      device=tmin.device)
+    counts = torch.empty(nb, dtype=torch.int32, device=tmin.device)
+    if n:
+        with torch.cuda.device(tmin.device):
+            launch("bvh_compact_live", tmin.data_ptr(), tmax.data_ptr(), n,
+                   live.data_ptr(), counts.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+    return live, counts
 
 
 def traverse(bvh, o, d, tmin, tmax):

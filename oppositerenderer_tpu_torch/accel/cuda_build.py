@@ -37,9 +37,10 @@ ENTRY_POINTS = {
     "closest_hit_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 5,
     "occluded_tris": [_PTR] * 6 + [_I32, _I32] + [_PTR] * 2,
     "gather_photons_tiled": [_PTR] * 9 + [_I32, _I32] + [_PTR] * 2,
-    "merge_vertices_tiled": [_PTR] * 12 + [_I32] + [_PTR] * 3,
+    "merge_vertices_tiled": [_PTR] * 10 + [_I32] * 3 + [_PTR] * 4,
     "bvh_closest": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 6,
     "bvh_any": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 2,
+    "bvh_compact_live": [_PTR] * 2 + [_I32] + [_PTR] * 3,
 }
 
 

@@ -63,8 +63,10 @@ def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
     out of the tile's box union; an all-invalid tile gets empty slots.
 
     Returns (starts, lens) int32 and weights f32, each [n_tiles, ROWS],
-    and per tile the photons visited and the photons in the (weighted)
-    box union, int32 [n_tiles].
+    per tile the photons visited and the photons in the (weighted) box
+    union, int32 [n_tiles], and each slot's (y,z) grid row as the index of
+    its x = 0 cell, y * res + z * res^2, int32 [n_tiles, ROWS] (0 for an
+    empty slot): B4's kernel culls a slot's window by it.
     """
     res = grid.resolution
     n = position.shape[0]
@@ -104,8 +106,9 @@ def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
     w_row = (stride_y * stride_z).to(torch.float32)[:, None]  # [Tt,1]
 
     offsets = grid.offsets.long()
-    cfrom = lo_t[:, 0, None] + y * res + z * res * res
-    cto = hi_t[:, 0, None] + y * res + z * res * res
+    row = y * res + z * res * res
+    cfrom = lo_t[:, 0, None] + row
+    cto = hi_t[:, 0, None] + row
     start = offsets[torch.where(ok, cfrom, 0).long()].to(torch.int32)
     end = offsets[torch.where(ok, cto, 0).long() + 1].to(torch.int32)
     ln = torch.where(ok, end - start, 0)                     # [Tt, ROWS]
@@ -121,7 +124,7 @@ def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
     visited = torch.sum(ln_s, dim=1, dtype=torch.int32)
     total = torch.sum(torch.where(ok, ln, 0) * w_row.to(torch.int32), dim=1,
                       dtype=torch.int32)
-    return start_s, ln_s, weight, visited, total
+    return start_s, ln_s, weight, visited, total, torch.where(ok, row, 0)
 
 
 def gather_photons_tiled_plain(starts, lens, weights, r2, qpos, qnormal,
@@ -227,7 +230,7 @@ def gather_photons_tiled(grid: PhotonGrid, position: torch.Tensor,
     n = position.shape[0]
     if n % TILE:
         raise ValueError(f"{n} queries are not a multiple of {TILE}")
-    starts, lens, weights, visited, total = _tile_tables(
+    starts, lens, weights, visited, total, _ = _tile_tables(
         grid, position, radius, u_rows, valid=valid)
     r = torch.as_tensor(radius, dtype=torch.float32, device=position.device)
     args = (starts, lens, weights, torch.square(r), position, normal,

@@ -19,9 +19,13 @@ afterwards.
 The pair loop is the hand-written kernel of ``csrc/vm.cu`` for CUDA
 tensors and :func:`merge_vertices_tiled_plain` for CPU tensors; the
 wrapper counts its kernel launches in ``merge_vertices_tiled.launches``.
-The TPU kernel's Mosaic workarounds (the transposed ``[16, M_pad]`` vertex
-packing, the 128-aligned DMA window, the static slot unroll) are not
-ported.
+The kernel reads the grid's vertices as 64-byte records
+(:func:`pack_vertex_records`, built once per grid into
+``VertexGrid.packed``) and culls each slot's window by its (y,z) grid row
+(``_tile_tables``' ``rows``) against each query's cells; the plain
+version sums every staged pair. The TPU kernel's Mosaic workarounds (the
+transposed ``[16, M_pad]`` vertex packing, the 128-aligned DMA window,
+the static slot unroll) are not ported.
 """
 from __future__ import annotations
 
@@ -39,6 +43,35 @@ EPS_PHONG = 1e-3    # bsdf/bsdf.py EPS_PHONG (reference BxDF.h:265)
 QCOLS = 32          # query table columns
 VERTEX_FIELDS = ("position", "wo", "throughput", "dVCM", "dVM", "cont",
                  "depth")
+RECORD = 16         # floats per packed vertex record
+# CTAs per tile in B4's kernel, each with ROWS // SLOT_GROUPS slots: a
+# tile's queries can sit in dense cells, and one CTA would walk all of its
+# slots alone
+SLOT_GROUPS = 4
+
+
+def pack_vertex_records(position: Tensor, wo: Tensor, throughput: Tensor,
+                        dVCM: Tensor, dVM: Tensor, cont: Tensor,
+                        depth: Tensor, cell: Tensor, resolution: int
+                        ) -> Tensor:
+    """[M, RECORD] float32: per vertex of a cell-sorted grid, ``cell`` its
+    grid cell (res^3 past the last), (position, dVCM), (wo, dVM),
+    (throughput, cont), (depth, x, 0, 0) with x the cell's x index (exact
+    in float32): four 16-byte groups, the layout in which B4's kernel
+    stages a slot with one 16-byte copy per group. (Assigned column by
+    column: on the card, torch.cat of such narrow columns is slower.)"""
+    p = torch.empty((position.shape[0], RECORD), dtype=torch.float32,
+                    device=position.device)
+    p[:, 0:3] = position
+    p[:, 3] = dVCM
+    p[:, 4:7] = wo
+    p[:, 7] = dVM
+    p[:, 8:11] = throughput
+    p[:, 11] = cont
+    p[:, 12] = depth
+    p[:, 13] = cell % resolution
+    p[:, 14:] = 0.0
+    return p
 
 
 def _query_table(cam_bsdf, cam_pos: Tensor, a_cam: Tensor, b_cam: Tensor,
@@ -85,18 +118,22 @@ def _query_table(cam_bsdf, cam_pos: Tensor, a_cam: Tensor, b_cam: Tensor,
     return q
 
 
-def merge_vertices_tiled_plain(starts, lens, weights, scal, qtab, vpos,
-                               vwo, vthr, vdvcm, vdvm, vcont, vdepth):
+def merge_vertices_tiled_plain(starts, lens, weights, rows, scal, qtab,
+                               vgrid):
     """Plain PyTorch version of the kernel's contract (``csrc/vm.cu``).
     For each tile, the windows ``[start, start + len)`` of its ROWS slots
-    against its TILE query rows of ``qtab``; ``scal`` is (r2, mis_vc_w,
-    depth1, max_path_length). The pair math follows the Pallas body
-    (pallas_vm.py:106-146) operation by operation. Returns the two sums
-    (out1, out2), each [N, 3]. Tiles go in chunks that bound the
-    [tiles, TILE, ROWS * CHUNK] intermediates; a chunk's windows are cut to
-    its longest slot."""
+    over the vertices of ``vgrid`` against its TILE query rows of
+    ``qtab``; ``scal`` is (r2, mis_vc_w, depth1, max_path_length). The
+    slots' grid ``rows`` only let the kernel cull pairs that fail
+    ``d2 <= r2``: this version tests every staged pair. The pair math
+    follows the Pallas body (pallas_vm.py:106-146) operation by operation.
+    Returns the two sums (out1, out2), each [N, 3]. Tiles go in chunks that
+    bound the [tiles, TILE, ROWS * CHUNK] intermediates; a chunk's windows
+    are cut to its longest slot."""
     n_tiles = starts.shape[0]
     dev = qtab.device
+    vpos, vwo, vthr, vdvcm, vdvm, vcont, vdepth = (
+        getattr(vgrid, f) for f in VERTEX_FIELDS)
     out1 = torch.zeros((n_tiles * TILE, 3), dtype=torch.float32, device=dev)
     out2 = torch.zeros_like(out1)
     if vpos.shape[0] == 0:
@@ -154,15 +191,19 @@ def merge_vertices_tiled_plain(starts, lens, weights, scal, qtab, vpos,
     return out1, out2
 
 
-def _check_merge(starts, lens, weights, scal, qtab, *verts):
-    n_tiles, m = starts.shape[0], verts[0].shape[0]
+def _check_merge(starts, lens, weights, rows, scal, qtab, vgrid):
+    n_tiles, m = starts.shape[0], vgrid.packed.shape[0]
     shapes = [("starts", starts, (n_tiles, ROWS), torch.int32),
               ("lens", lens, (n_tiles, ROWS), torch.int32),
               ("weights", weights, (n_tiles, ROWS), torch.float32),
+              ("rows", rows, (n_tiles, ROWS), torch.int32),
               ("scal", scal, (4,), torch.float32),
-              ("qtab", qtab, (n_tiles * TILE, QCOLS), torch.float32)]
-    shapes += [(name, a, (m, 3) if i < 3 else (m,), torch.float32)
-               for i, (name, a) in enumerate(zip(VERTEX_FIELDS, verts))]
+              ("qtab", qtab, (n_tiles * TILE, QCOLS), torch.float32),
+              ("packed", vgrid.packed, (m, RECORD), torch.float32),
+              ("offsets", vgrid.offsets, (vgrid.resolution ** 3 + 1,),
+               torch.int32),
+              ("origin", vgrid.origin, (3,), torch.float32),
+              ("cell_size", vgrid.cell_size, (), torch.float32)]
     for name, a, shape, dtype in shapes:
         if a.device != qtab.device:
             raise ValueError(f"{name} is on {a.device}, qtab on "
@@ -174,23 +215,27 @@ def _check_merge(starts, lens, weights, scal, qtab, *verts):
                              f"{tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if vgrid.packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned")
 
 
-def merge_vertices_tiled_kernel(starts, lens, weights, scal, qtab, vpos,
-                                vwo, vthr, vdvcm, vdvm, vcont, vdepth):
+def merge_vertices_tiled_kernel(starts, lens, weights, rows, scal, qtab,
+                                vgrid):
     """The kernel on CUDA tensors, with the plain version's contract."""
-    verts = (vpos, vwo, vthr, vdvcm, vdvm, vcont, vdepth)
-    _check_merge(starts, lens, weights, scal, qtab, *verts)
+    _check_merge(starts, lens, weights, rows, scal, qtab, vgrid)
     out1 = torch.empty((qtab.shape[0], 3), dtype=torch.float32,
                        device=qtab.device)
     out2 = torch.empty_like(out1)
     if starts.shape[0] == 0:
         return out1, out2
+    part = torch.empty((2, SLOT_GROUPS) + tuple(out1.shape),
+                       dtype=torch.float32, device=qtab.device)
     with torch.cuda.device(qtab.device):
-        launch("merge_vertices_tiled", starts.data_ptr(), lens.data_ptr(),
-               weights.data_ptr(), scal.data_ptr(), qtab.data_ptr(),
-               *(a.data_ptr() for a in verts), starts.shape[0],
-               out1.data_ptr(), out2.data_ptr(),
+        launch("merge_vertices_tiled", *(a.data_ptr() for a in (
+                   starts, lens, weights, rows, scal, qtab, vgrid.packed,
+                   vgrid.offsets, vgrid.origin, vgrid.cell_size)),
+               vgrid.resolution, starts.shape[0], SLOT_GROUPS,
+               part.data_ptr(), out1.data_ptr(), out2.data_ptr(),
                torch.cuda.current_stream().cuda_stream)
     merge_vertices_tiled.launches += 1
     return out1, out2
@@ -200,9 +245,9 @@ def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
                  radius_sq, mis_vc_w, u_rows, depth1):
     """Everything the pair loop takes, for one merge round
     (pallas_vm.py:274-312): the cell order of the queries, the slot tables,
-    the scalars, the cell-sorted query table, and the per-query colours
-    kd/pi and rho_phong in that order. Returns (order, (pair-loop
-    arguments), kd_pi, rho)."""
+    the slots' grid rows, the scalars, the cell-sorted query table, the
+    grid, and the per-query colours kd/pi and rho_phong. Returns (order,
+    (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho)."""
     n = cam_pos.shape[0]
     dev = cam_pos.device
     radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32, device=dev)
@@ -221,7 +266,7 @@ def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
         cam_cont = torch.full_like(cam_cont, cfg.vcm_force_continuation_prob)
     qtab = _query_table(cam_bsdf, cam_pos, cam_dVCM * mis_vc_w,
                         cam_dVM * cam_cont, active)[order]
-    starts, lens, weights, _, _ = _tile_tables(
+    starts, lens, weights, _, _, rows = _tile_tables(
         vgrid, qtab[:, 0:3], torch.sqrt(radius_sq), u_rows,
         valid=qtab[:, 24] > 0.5)
     scal = torch.stack([
@@ -231,9 +276,7 @@ def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
     kd_pi = (cam_bsdf.kd * INV_PI)[order]
     rho = (cam_bsdf.ks * ((cam_bsdf.phong_exp + 2.0)
                           * (0.5 * INV_PI))[:, None])[order]
-    args = (starts, lens, weights, scal, qtab,
-            *(getattr(vgrid, f) for f in VERTEX_FIELDS))
-    return order, args, kd_pi, rho
+    return order, (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho
 
 
 def merge_vertices_tiled(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
@@ -258,7 +301,7 @@ def merge_vertices_tiled(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
     acc_s = kd_pi * out1 + rho * out2
     acc = torch.empty_like(acc_s)
     acc[order] = acc_s
-    radius_sq = args[3][0]
+    radius_sq = args[4][0]
     norm = 1.0 / (torch.pi * radius_sq * n_light_paths)
     return cam_thr * acc * norm
 

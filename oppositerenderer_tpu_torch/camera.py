@@ -17,6 +17,7 @@ import torch
 
 from .core.math import Tensor, dot, length, normalize
 from .core.sampling import sample_unit_disc
+from .devices import resolve_device
 
 
 @dataclasses.dataclass
@@ -33,9 +34,11 @@ class Camera:
     @classmethod
     def make(cls, eye, lookat, up=(0.0, 1.0, 0.0), hfov: float = 60.0,
              vfov: float = 60.0, aperture: float = 0.0,
-             device: torch.device | str = "cpu") -> "Camera":
+             device: torch.device | str | None = None) -> "Camera":
         """Camera::setup (Camera.cpp:333-345), computed in float64 on the
-        host and stored as float32, as the JAX package does."""
+        host and stored as float32, as the JAX package does, on ``device``
+        (None: the CUDA card)."""
+        device = resolve_device(device)
         eye = np.asarray(eye, np.float64)
         lookat = np.asarray(lookat, np.float64)
         up = np.asarray(up, np.float64)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .core.rng import Key, key_data
+from .devices import resolve_device
 from .interop import key_from_numpy
 
 Tensor = torch.Tensor
@@ -28,9 +29,10 @@ class Film:
 
     @classmethod
     def create(cls, width: int, height: int,
-               device: torch.device | str = "cpu") -> "Film":
+               device: torch.device | str | None = None) -> "Film":
+        """An empty film on ``device`` (None: the CUDA card)."""
         return cls(accum=torch.zeros((height, width, 3), dtype=torch.float32,
-                                     device=device),
+                                     device=resolve_device(device)),
                    iterations=0)
 
     def add_iteration(self, radiance: Tensor) -> "Film":
@@ -101,8 +103,11 @@ def save_checkpoint(path: str | Path, film: Film, rng_key: Key,
     np.savez(str(path), **data)
 
 
-def load_checkpoint(path: str | Path, device: torch.device | str = "cpu"):
-    """Returns (film, rng_key, ppm_radius_sq, extra)."""
+def load_checkpoint(path: str | Path,
+                    device: torch.device | str | None = None):
+    """Returns (film, rng_key, ppm_radius_sq, extra), the film on ``device``
+    (None: the CUDA card)."""
+    device = resolve_device(device)
     with np.load(str(path)) as z:
         film = Film(accum=torch.as_tensor(z["accum"], device=device),
                     iterations=int(z["iterations"]))

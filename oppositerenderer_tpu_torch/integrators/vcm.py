@@ -31,7 +31,7 @@ import torch
 
 from ..accel.gather_kernels import ROWS, TILE
 from ..accel.intersect import intersect, occluded
-from ..accel.vm_kernels import merge_vertices_tiled
+from ..accel.vm_kernels import merge_vertices_tiled, pack_vertex_records
 from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import RenderConfig
@@ -311,6 +311,9 @@ class VertexGrid:
     origin: Tensor      # [3]
     cell_size: Tensor   # []
     resolution: int
+    # [M,16] the vertices as 64-byte records for B4's kernel
+    # (vm_kernels.pack_vertex_records); not a field of the JAX package's
+    packed: Tensor
 
 
 def build_vertex_grid(scene: Scene, cfg: RenderConfig,
@@ -338,13 +341,16 @@ def build_vertex_grid(scene: Scene, cfg: RenderConfig,
     offsets = torch.searchsorted(
         cells_sorted, torch.arange(n_cells + 1, dtype=cells_sorted.dtype,
                                    device=cells.device))
-    return VertexGrid(
+    fields = dict(
         position=flat.position[order], wo=flat.wo[order],
         throughput=flat.throughput[order], dVCM=flat.dVCM[order],
         dVM=flat.dVM[order], cont=cont[order],
-        depth=flat.depth.to(torch.float32)[order],
-        offsets=offsets.to(torch.int32), origin=origin,
-        cell_size=cell_size, resolution=res)
+        depth=flat.depth.to(torch.float32)[order])
+    offsets = offsets.to(torch.int32)
+    return VertexGrid(**fields, offsets=offsets, origin=origin,
+                      cell_size=cell_size, resolution=res,
+                      packed=pack_vertex_records(**fields, cell=cells_sorted,
+                                                 resolution=res))
 
 
 def _merge_vertices(scene: Scene, cfg: RenderConfig, cam_bsdf: BSDF,

@@ -4,8 +4,9 @@ package's leaves.
 The JAX package's records are trees of arrays. Handed over as numpy
 arrays, with the port's field names (a nested mapping, e.g. from
 ``dataclasses.fields`` of each JAX record), they become the port's
-records on a given device, so both packages render the same scene. This
-module reads numpy only: it never imports JAX.
+records on a given device (None: the CUDA card, as everywhere in the
+port), so both packages render the same scene. This module reads numpy
+only: it never imports JAX.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import numpy as np
 import torch
 
 from .accel.bvh import Bvh
+from .accel.vm_kernels import VERTEX_FIELDS, pack_vertex_records
 from .camera import Camera
 from .core.rng import Key
+from .devices import resolve_device
 from .integrators.vcm import LightVertexStore, VertexGrid
 from .lights import LIGHT_FIELDS, LightTable
 from .photon_map import PhotonBatch, PhotonGrid
@@ -29,21 +32,22 @@ PHOTON_GRID_ARRAYS = ("position", "power", "direction", "offsets", "origin",
                       "cell_size", "n_valid")
 LIGHT_VERTEX_FIELDS = tuple(LightVertexStore.__dataclass_fields__)
 VERTEX_GRID_ARRAYS = tuple(f for f in VertexGrid.__dataclass_fields__
-                           if f != "resolution")
+                           if f not in ("resolution", "packed"))
 BVH_NODES = ("nodes_min", "nodes_max", "nodes_a", "nodes_b")
 BVH_STATICS = ("root_code", "arity", "leaf_size", "max_stack")
 
 
 def _tensor(a, device) -> torch.Tensor:
     # np.array copies: the leaves may be read-only views of device arrays
-    return torch.as_tensor(np.array(a), device=device)
+    return torch.as_tensor(np.array(a), device=resolve_device(device))
 
 
 def _tensors(leaves: Mapping, names, device) -> dict:
     return {n: _tensor(leaves[n], device) for n in names}
 
 
-def scene_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
+def scene_from_numpy(leaves: Mapping,
+                     device: torch.device | str | None = None
                      ) -> Scene:
     """``leaves`` maps ``geometry``/``materials``/``lights`` to mappings of
     their fields, plus ``aabb_min``, ``aabb_max`` and optionally ``name``,
@@ -70,7 +74,8 @@ def scene_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
         name=str(leaves.get("name", "scene")), **atlases)
 
 
-def bvh_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
+def bvh_from_numpy(leaves: Mapping,
+                   device: torch.device | str | None = None
                    ) -> Bvh:
     """``leaves`` maps a JAX ``Bvh``'s binary node arrays, its ``rows``
     table and its ``root_code``/``arity``/``leaf_size``/``max_stack``; its
@@ -83,7 +88,8 @@ def bvh_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
                **{k: int(leaves[k]) for k in BVH_STATICS})
 
 
-def camera_from_numpy(leaves: Mapping, device: torch.device | str = "cpu"
+def camera_from_numpy(leaves: Mapping,
+                      device: torch.device | str | None = None
                       ) -> Camera:
     """``leaves`` maps the camera's array fields and ``hfov``/``vfov``."""
     return Camera(**_tensors(leaves, CAMERA_FIELDS, device),
@@ -99,7 +105,7 @@ def key_from_numpy(words) -> Key:
 
 
 def photon_batch_from_numpy(leaves: Mapping,
-                            device: torch.device | str = "cpu"
+                            device: torch.device | str | None = None
                             ) -> PhotonBatch:
     """``leaves`` maps ``position``/``power``/``direction`` [P,3] and
     ``valid`` [P] (a JAX ``PhotonBatch``'s fields)."""
@@ -107,21 +113,30 @@ def photon_batch_from_numpy(leaves: Mapping,
 
 
 def photon_grid_from_numpy(leaves: Mapping,
-                           device: torch.device | str = "cpu") -> PhotonGrid:
+                           device: torch.device | str | None = None
+                           ) -> PhotonGrid:
     """``leaves`` maps a JAX ``PhotonGrid``'s arrays and ``resolution``."""
     return PhotonGrid(**_tensors(leaves, PHOTON_GRID_ARRAYS, device),
                       resolution=int(leaves["resolution"]))
 
 
 def light_vertex_store_from_numpy(leaves: Mapping,
-                                  device: torch.device | str = "cpu"
+                                  device: torch.device | str | None = None
                                   ) -> LightVertexStore:
     """``leaves`` maps a JAX ``LightVertexStore``'s fields ([P,V,...])."""
     return LightVertexStore(**_tensors(leaves, LIGHT_VERTEX_FIELDS, device))
 
 
 def vertex_grid_from_numpy(leaves: Mapping,
-                           device: torch.device | str = "cpu") -> VertexGrid:
-    """``leaves`` maps a JAX ``VertexGrid``'s arrays and ``resolution``."""
-    return VertexGrid(**_tensors(leaves, VERTEX_GRID_ARRAYS, device),
-                      resolution=int(leaves["resolution"]))
+                           device: torch.device | str | None = None
+                           ) -> VertexGrid:
+    """``leaves`` maps a JAX ``VertexGrid``'s arrays and ``resolution``;
+    the port's packed vertex records are built from them."""
+    arrays = _tensors(leaves, VERTEX_GRID_ARRAYS, device)
+    res = int(leaves["resolution"])
+    offsets = arrays["offsets"]
+    cell = torch.searchsorted(offsets, torch.arange(
+        arrays["position"].shape[0], dtype=offsets.dtype,
+        device=offsets.device), right=True) - 1
+    return VertexGrid(**arrays, resolution=res, packed=pack_vertex_records(
+        **{f: arrays[f] for f in VERTEX_FIELDS}, cell=cell, resolution=res))

@@ -17,6 +17,7 @@ import torch
 from .core.math import INV_PI, PI, Tensor, dot, length
 from .core.sampling import (cone_pdf_w, sample_cone, sample_unit_sphere,
                             sample_unit_hemisphere_cos)
+from .devices import resolve_device
 
 AREA, POINT, SPOT = 0, 1, 2
 
@@ -94,7 +95,9 @@ def make_spot_light(power, position, direction, angle_deg) -> dict:
 
 
 def build_light_table(light_dicts: list[dict],
-                      device: torch.device | str = "cpu") -> LightTable:
+                      device: torch.device | str | None = None) -> LightTable:
+    """The lights' fields stacked on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     fields = {}
     for name in LIGHT_FIELDS:
         vals = np.stack([np.asarray(d[name]) for d in light_dicts]).astype(

@@ -19,6 +19,7 @@ import torch
 
 from ..accel.bvh import BVH_AUTO_THRESHOLD, build_scene_bvh
 from ..camera import Camera
+from ..devices import resolve_device
 from ..lights import make_area_light, make_point_light
 from .builder import SceneBuilder
 from .types import Scene
@@ -189,9 +190,11 @@ def _brick_texture(res=256, tiles=6):
 # the scene
 # --------------------------------------------------------------------------
 
-def make_atrium(detail: float = 1.0, device: torch.device | str = "cpu"
+def make_atrium(detail: float = 1.0,
+                device: torch.device | str | None = None
                 ) -> tuple[Scene, Camera]:
     """Sponza-class two-story atrium. ~260k tris at detail=1.0."""
+    device = resolve_device(device)
     b = SceneBuilder("Atrium")
     # internal scale calibrated so detail=1.0 lands at ~260k triangles
     # (Crytek Sponza class); counts grow O(detail^2)

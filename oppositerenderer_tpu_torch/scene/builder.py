@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from ..lights import build_light_table
 from .texture import build_atlas, compute_triangle_tangents
 from .types import (DIFFUSE, EMITTER, GLASS, GLOSSY, MATERIAL_FIELDS, MIRROR,
@@ -187,7 +188,9 @@ class SceneBuilder:
 
     # ---------------------------------------------------------------- build
     def build(self, aabb_padding: float = 0.0,
-              device: torch.device | str = "cpu") -> Scene:
+              device: torch.device | str | None = None) -> Scene:
+        """The Scene record on ``device`` (None: the CUDA card)."""
+        device = resolve_device(device)
         if not self._tris and not self._bulk and not self._spheres:
             raise ValueError("empty scene")
         if not self._lights:

@@ -20,6 +20,7 @@ import torch
 
 from ..accel.bvh import BVH_AUTO_THRESHOLD, build_scene_bvh
 from ..camera import Camera
+from ..devices import resolve_device
 from ..lights import make_area_light
 from .builder import SceneBuilder
 from .types import Scene
@@ -83,8 +84,9 @@ def _chair(b, mats, cx, cz, facing, d):
 
 
 def make_conference(detail: float = 1.0,
-                    device: torch.device | str = "cpu"
+                    device: torch.device | str | None = None
                     ) -> tuple[Scene, Camera]:
+    device = resolve_device(device)
     d = max(0.05, float(detail))
     b = SceneBuilder(f"Conference:{detail:g}")
 

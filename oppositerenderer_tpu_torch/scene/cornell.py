@@ -13,6 +13,7 @@ import enum
 import torch
 
 from ..camera import Camera
+from ..devices import resolve_device
 from ..lights import make_area_light, make_point_light
 from .builder import SceneBuilder
 from .types import Scene
@@ -38,8 +39,10 @@ class CornellSmallConfig(enum.IntFlag):
     DEFAULT = LIGHT_AREA | BLOCKS
 
 
-def make_cornell(device: torch.device | str = "cpu") -> tuple[Scene, Camera]:
+def make_cornell(device: torch.device | str | None = None
+                 ) -> tuple[Scene, Camera]:
     """Classic Cornell box (Cornell.cpp:20-31, 69-196; camera :203-211)."""
+    device = resolve_device(device)
     b = SceneBuilder("Cornell")
     white = b.add_diffuse((0.8, 0.8, 0.8))
     green = b.add_diffuse((0.05, 0.8, 0.05))
@@ -64,9 +67,10 @@ def make_cornell(device: torch.device | str = "cpu") -> tuple[Scene, Camera]:
 
 
 def make_cornell_small(config: CornellSmallConfig = CornellSmallConfig.DEFAULT,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str | None = None
                        ) -> tuple[Scene, Camera]:
     """SmallVCM-style box (CornellSmall.cpp:25-330; camera :333-341)."""
+    device = resolve_device(device)
     C = CornellSmallConfig
     b = SceneBuilder("CornellSmall")
 
@@ -180,13 +184,16 @@ CORNELL_SMALL_VARIANTS = {
 SCENE_NAMES = ("Cornell",) + tuple(CORNELL_SMALL_VARIANTS)
 
 
-def get_scene_by_name(name: str, device: torch.device | str = "cpu"
+def get_scene_by_name(name: str,
+                      device: torch.device | str | None = None
                       ) -> tuple[Scene, Camera]:
     """SceneFactory::getSceneByName (Gui/scene/SceneFactory.cpp:24-80): the
     eight Cornell scenes and the procedural BVH scenes "Atrium" and
     "Conference" ("Atrium:<detail>", "Conference:<detail>" scale their
     triangle counts). Scene files (.dae/.obj) belong to the scene-import
-    slice of the port."""
+    slice of the port. ``device`` None is the CUDA card
+    (:func:`~oppositerenderer_tpu_torch.devices.resolve_device`)."""
+    device = resolve_device(device)
     if name == "Cornell":
         return make_cornell(device)
     if name in CORNELL_SMALL_VARIANTS:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.math import Tensor, normalize
+from ..devices import resolve_device
 
 _PRECISION_BITS = 32 - 8 - 2   # PIL Resample.c, 8 bits per channel
 
@@ -77,9 +78,11 @@ def _resize_bilinear_u8(img: np.ndarray, size: int) -> np.ndarray:
 
 
 def build_atlas(images: list[np.ndarray], resolution: int = 256,
-                device: torch.device | str = "cpu") -> Tensor:
+                device: torch.device | str | None = None) -> Tensor:
     """Stack images ([H, W, 3] in [0, 1]) into [n, R, R, 3] float32, through
-    the JAX package's 8-bit round trip and resize."""
+    the JAX package's 8-bit round trip and resize, on ``device`` (None: the
+    CUDA card)."""
+    device = resolve_device(device)
     if not images:
         return torch.zeros((0, 1, 1, 3), dtype=torch.float32, device=device)
     out = []

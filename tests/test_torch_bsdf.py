@@ -172,7 +172,7 @@ def test_light_contribution_matches_jax():
               jlights.make_spot_light((30.0,) * 3, (1.25, 2.4, 1.25),
                                       (0, -1, 0), 40.0)]
     jt = jlights.build_light_table(lights)
-    tt = tlights.build_light_table(lights)
+    tt = tlights.build_light_table(lights, "cpu")
     for f in tlights.LIGHT_FIELDS:
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(jt, f)), err_msg=f)

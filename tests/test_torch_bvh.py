@@ -54,7 +54,8 @@ def soup(n_tris, seed=0):
             v2 = c + rng.normal(0, 0.2, 3)
             b.add_triangle(c, v1, v2, mat)
         b.add_light(point((10.0,) * 3, (0, 8, 0)))
-        scenes.append(b.build())
+        port = Builder is SceneBuilder
+        scenes.append(b.build(device="cpu") if port else b.build())
     return scenes
 
 
@@ -137,7 +138,7 @@ def test_build_matches_jax(case, collapse):
     if case.startswith("soup"):
         jscene, tscene = soup(int(case[4:]))
     else:
-        jscene, tscene = jax_scene(case)[0], get_scene_by_name(case)[0]
+        jscene, tscene = jax_scene(case)[0], get_scene_by_name(case, "cpu")[0]
     jsb, jbvh = JB.build_scene_bvh(jscene, collapse=collapse)
     tsb, tbvh = TB.build_scene_bvh(tscene, collapse=collapse)
     assert tbvh.builder == "native"
@@ -147,12 +148,12 @@ def test_build_matches_jax(case, collapse):
 
 @pytest.mark.parametrize("name", ["Atrium:0.1", "Conference:0.15"])
 def test_scene_bvh_matches_jax(name):
-    jscene, tscene = jax_scene(name)[0], get_scene_by_name(name)[0]
+    jscene, tscene = jax_scene(name)[0], get_scene_by_name(name, "cpu")[0]
     assert tscene.geometry.n_triangles > TB.BVH_AUTO_THRESHOLD
     assert_bvh_equal(tscene.bvh, jscene.bvh)
     assert_geometry_equal(tscene, jscene)
     # the same table through interop
-    assert_bvh_equal(interop.bvh_from_numpy(bvh_leaves(jscene.bvh)),
+    assert_bvh_equal(interop.bvh_from_numpy(bvh_leaves(jscene.bvh), "cpu"),
                      jscene.bvh, built_here=False)
 
 
@@ -170,7 +171,7 @@ def rays(n, lo, hi, seed, kill_every=7, tmax_value=1e30):
 @pytest.fixture(scope="module")
 def atrium():
     jscene, _ = jax_scene("Atrium:0.1")
-    return jscene, interop.bvh_from_numpy(bvh_leaves(jscene.bvh))
+    return jscene, interop.bvh_from_numpy(bvh_leaves(jscene.bvh), "cpu")
 
 
 @pytest.mark.parametrize("seed", [5, 6])
@@ -209,7 +210,7 @@ def test_plain_traversal_matches_jax_wavefront(atrium, seed):
 def cornell_bvh():
     jscene, _ = jax_scene("CornellSmall")
     jsb, jbvh = JB.build_scene_bvh(jscene)
-    tsb, tbvh = TB.build_scene_bvh(get_scene_by_name("CornellSmall")[0])
+    tsb, tbvh = TB.build_scene_bvh(get_scene_by_name("CornellSmall", "cpu")[0])
     return jsb, jbvh, tbvh
 
 
@@ -309,3 +310,28 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch(cornell_bvh):
         assert torch.equal(a, b)
     bk.traverse_any(tbvh, *arrays)
     assert (bk.traverse.launches, bk.traverse_any.launches) == before
+
+
+@pytest.mark.parametrize("p_live", [0.0, 0.37, 1.0])
+@pytest.mark.parametrize("n", [1, 1000, 65537])
+def test_compaction_plain_matches_nonzero(n, p_live):
+    """The plain twin of B5's live-lane compaction: block by block of 128
+    lanes, the lanes with tmax > tmin, ascending, and their counts; joined,
+    the lanes torch.nonzero finds; NaN bounds count as dead, as in the
+    traversal."""
+    rng = np.random.default_rng(n)
+    tmin = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    tmax = np.where(rng.uniform(size=n) < p_live, tmin + 1.0, tmin)
+    tmax[::97] = np.nan
+    tmin_t, tmax_t = torch.as_tensor(tmin), torch.as_tensor(
+        tmax.astype(np.float32))
+    live, counts = bk.compact_live(tmin_t, tmax_t)
+    want = torch.nonzero(tmax_t > tmin_t)[:, 0].to(torch.int32)
+    nb = -(-n // bk.COMPACT_BLOCK)
+    assert live.dtype == counts.dtype == torch.int32
+    assert live.shape == (nb * bk.COMPACT_BLOCK,) and counts.shape == (nb,)
+    assert int(counts.sum()) == want.shape[0]
+    blocks = live.reshape(nb, bk.COMPACT_BLOCK)
+    got = torch.cat([blocks[b, :int(c)] for b, c in enumerate(counts)])
+    assert torch.equal(got, want)
+    assert int((live >= 0).sum()) == want.shape[0]   # -1 past each count

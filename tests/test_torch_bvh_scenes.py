@@ -67,14 +67,14 @@ def assert_scene_equal(got, want_leaves, path=""):
 @pytest.mark.parametrize("name", ["Atrium:0.1", "Conference:0.15"])
 def test_scene_fields_match_jax(name):
     jscene, jcam = jax_scene(name)
-    tscene, tcam = get_scene_by_name(name)
+    tscene, tcam = get_scene_by_name(name, "cpu")
     jl = leaves(jscene)
     assert_scene_equal(tscene, jl)
     assert tscene.name == jscene.name and tscene.bvh.builder == "native"
     assert_scene_equal(tcam, leaves(jcam))
     # interop: JAX's leaves give the port's own build (the BVH as JAX
     # sized it)
-    via = interop.scene_from_numpy(jl)
+    via = interop.scene_from_numpy(jl, "cpu")
     assert via.bvh.max_stack == jscene.bvh.max_stack
     via.bvh.max_stack = tscene.bvh.max_stack
     assert_scene_equal(via, jl)
@@ -87,7 +87,7 @@ def test_one_pt_iteration_of_atrium_matches_jax():
         **cfg, use_pallas=False, iterations_per_dispatch=1,
         coherent_peel="off"), seed=7)
     want = np.asarray(jr.render(1).mean_radiance())
-    tscene, tcam = get_scene_by_name("Atrium:0.1")
+    tscene, tcam = get_scene_by_name("Atrium:0.1", "cpu")
     got = Renderer(tscene, tcam, RenderConfig(**cfg), seed=7).render(
         1).mean_radiance().numpy()
     agree = np.isclose(got, want, rtol=1e-3, atol=0.0).all(axis=-1)
@@ -98,7 +98,7 @@ def test_one_pt_iteration_of_atrium_matches_jax():
 
 @pytest.fixture(scope="module")
 def cornell_pair():
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     scene_b, bvh = build_scene_bvh(scene)
     return scene, dataclasses.replace(scene_b, bvh=bvh), cam
 
@@ -133,7 +133,7 @@ def test_cli_renders_the_bvh_scenes(tmp_path, capsys):
 
 def test_renders_count_no_launch_on_the_cpu():
     before = (bk.traverse.launches, bk.traverse_any.launches)
-    scene, cam = get_scene_by_name("Conference:0.1")
+    scene, cam = get_scene_by_name("Conference:0.1", "cpu")
     img = Renderer(scene, cam, RenderConfig(width=8, height=8),
                    seed=1).render(1).mean_radiance()
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
@@ -143,8 +143,8 @@ def test_renders_count_no_launch_on_the_cpu():
 def test_scene_files_still_raise():
     for name in ("scene.dae", "model.obj"):
         with pytest.raises(NotImplementedError, match="scene-import"):
-            get_scene_by_name(name)
+            get_scene_by_name(name, "cpu")
     jl = leaves(jax_scene("CornellSmall")[0])
     jl["medium"] = {"sigma_s": np.float32(0.1)}
     with pytest.raises(NotImplementedError, match="media slice"):
-        interop.scene_from_numpy(jl)
+        interop.scene_from_numpy(jl, "cpu")

@@ -15,7 +15,7 @@ torch.set_num_threads(2)
 
 @pytest.mark.slow
 def test_pt_vcm_agree_on_conference():
-    scene, cam = get_scene_by_name("Conference:0.15")
+    scene, cam = get_scene_by_name("Conference:0.15", "cpu")
     assert scene.bvh is not None and int(scene.lights.n_lights) == 3
     means = {}
     for m, iters in ((RenderMethod.PATH_TRACING, 20),

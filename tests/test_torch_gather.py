@@ -66,7 +66,8 @@ def port_grid(jgrid):
         direction=np.asarray(jgrid.direction),
         offsets=np.asarray(jgrid.offsets), origin=np.asarray(jgrid.origin),
         cell_size=np.asarray(jgrid.cell_size),
-        n_valid=np.asarray(jgrid.n_valid), resolution=jgrid.resolution))
+        n_valid=np.asarray(jgrid.n_valid), resolution=jgrid.resolution),
+        "cpu")
 
 
 def u_rows_for(n_tiles, seed):
@@ -193,7 +194,7 @@ def test_cpu_call_runs_the_plain_version_without_a_launch():
     grid = port_grid(jgrid)
     q, n = torch.as_tensor(qpos), torch.as_tensor(qn)
     u = torch.as_tensor(u_rows_for(3, 1))
-    starts, lens, weights, _, _ = gk._tile_tables(grid, q, r, u)
+    starts, lens, weights, *_ = gk._tile_tables(grid, q, r, u)
     before = gk.gather_photons_tiled.launches
     got, _ = gk.gather_photons_tiled(grid, q, n, torch.tensor(r), u_rows=u)
     assert gk.gather_photons_tiled.launches == before
@@ -209,7 +210,7 @@ def test_kernel_wrapper_checks_its_inputs():
     grid = port_grid(jgrid)
     q, n = torch.as_tensor(qpos), torch.as_tensor(qn)
     u = torch.as_tensor(u_rows_for(1, None))
-    starts, lens, weights, _, _ = gk._tile_tables(grid, q, r, u)
+    starts, lens, weights, *_ = gk._tile_tables(grid, q, r, u)
     r2 = torch.tensor(r * r, dtype=torch.float32)
     ok = [starts, lens, weights, r2, q, n, grid.position, grid.power,
           grid.direction]

@@ -57,7 +57,7 @@ def restore_backend():
 def test_intersect_matches_jax(name, backend):
     jint.set_backend(backend)
     jscene, _ = jax_scene(name)
-    tscene, _ = get_scene_by_name(name)
+    tscene, _ = get_scene_by_name(name, "cpu")
     ja, ta = both(*random_rays(2000, seed=1))
     a = jint.intersect(jscene, *ja)
     b = intersect(tscene, *ta)
@@ -78,7 +78,7 @@ def test_intersect_matches_jax(name, backend):
 def test_occluded_matches_jax(name, backend):
     jint.set_backend(backend)
     jscene, _ = jax_scene(name)
-    tscene, _ = get_scene_by_name(name)
+    tscene, _ = get_scene_by_name(name, "cpu")
     ja, ta = both(*random_rays(2000, seed=2, tmax_scale=2.0))
     want = np.asarray(jint.occluded(jscene, *ja))
     got = occluded(tscene, *ta).numpy()
@@ -91,7 +91,7 @@ def test_plain_kernels_match_pallas_interpret(n):
     """The plain versions against the TPU kernels themselves, with a ray
     count that is no multiple of any block and a tenth of the lanes dead
     (tmax < tmin)."""
-    tscene, _ = get_scene_by_name("CornellSmall")
+    tscene, _ = get_scene_by_name("CornellSmall", "cpu")
     g = tscene.geometry
     tri9 = ik.tri9_from_geometry(g)
     occ_mask = occluder_mask(tscene, g.tri_mat)
@@ -120,7 +120,7 @@ def test_plain_kernels_match_pallas_interpret(n):
 
 
 def test_chunking_does_not_change_results():
-    tscene, _ = get_scene_by_name("CornellSmall")
+    tscene, _ = get_scene_by_name("CornellSmall", "cpu")
     tri9 = ik.tri9_from_geometry(tscene.geometry)
     mask = occluder_mask(tscene, tscene.geometry.tri_mat)
     ta = [torch.as_tensor(a) for a in random_rays(1000, seed=4, tmax_scale=2)]
@@ -134,7 +134,7 @@ def test_chunking_does_not_change_results():
 
 
 def test_cpu_calls_run_the_plain_version_and_count_no_launch():
-    tscene, _ = get_scene_by_name("CornellSmall")
+    tscene, _ = get_scene_by_name("CornellSmall", "cpu")
     before = (ik.closest_hit_tris.launches, ik.occluded_tris.launches)
     ta = [torch.as_tensor(a) for a in random_rays(64, seed=5)]
     intersect(tscene, *ta)
@@ -150,7 +150,7 @@ def test_bvh_scene_raises():
     import dataclasses
     from oppositerenderer_tpu_torch.accel import bvh_kernels
     from oppositerenderer_tpu_torch.accel.bvh import build_scene_bvh
-    tscene, _ = get_scene_by_name("CornellSmall")
+    tscene, _ = get_scene_by_name("CornellSmall", "cpu")
     ta = [torch.as_tensor(a) for a in random_rays(64, seed=6)]
     scene_b, bvh = build_scene_bvh(tscene)
     for bad, match in (

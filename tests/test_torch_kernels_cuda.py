@@ -9,7 +9,8 @@ Run them on such a machine with
 not need.)
 The library is built with --fmad=false, so the intersection kernels (B1,
 B2) and the BVH traversal (B5) and their plain versions must agree bit
-for bit. The gather kernel (B3) and
+for bit, B5 also on inputs whose lanes are all dead or all live, and its
+live-lane compaction must find the lanes torch.nonzero finds. The gather kernel (B3) and
 the vertex-merge kernel (B4) sum the same terms as their plain versions in
 another order: rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and
 tables.
@@ -259,3 +260,47 @@ def test_bvh_render_on_the_card_matches_the_cpu_render(cuda):
     agree = np.isclose(imgs[1], imgs[0], rtol=1e-3, atol=0).all(axis=-1)
     assert agree.mean() >= 0.99
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["all dead", "all live"])
+def test_bvh_kernels_on_all_dead_and_all_live_lanes(cuda, kind):
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    scene, _ = get_scene_by_name("Atrium:0.25", cuda)
+    o, d, tmin, tmax = chip_smoke._rays(65536, 11, scene.aabb_min.tolist(),
+                                        scene.aabb_max.tolist(), cuda)
+    if kind == "all dead":
+        tmax = torch.where(torch.arange(tmax.shape[0], device=cuda) % 2 == 0,
+                           tmin, tmin - 1.0)
+    else:
+        tmax = torch.where(tmax > tmin, tmax, 1e30)
+    got = bk.traverse(scene.bvh, o, d, tmin, tmax)
+    want = bk.traverse_plain(scene.bvh, o, d, tmin, tmax)
+    for a, b in zip(got, want):
+        assert chip_smoke._bits_differ(a, b) == 0
+    assert bool(got[4].any()) == (kind == "all live")
+    assert torch.equal(bk.traverse_any(scene.bvh, o, d, tmin, tmax),
+                       bk.traverse_any_plain(scene.bvh, o, d, tmin, tmax))
+
+
+@pytest.mark.parametrize("p_live", [0.0, 0.2, 1.0])
+def test_live_lane_compaction_matches_nonzero(cuda, p_live):
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    rng = np.random.default_rng(3)
+    n = 100_003
+    tmax = np.where(rng.uniform(size=n) < p_live, 1.0, -1.0)
+    tmin = torch.zeros(n, device=cuda)
+    tmax = torch.as_tensor(tmax.astype(np.float32), device=cuda)
+    live, counts = bk.compact_live(tmin, tmax)
+    plain = bk.compact_live_plain(tmin, tmax)
+    assert torch.equal(live, plain[0]) and torch.equal(counts, plain[1])
+    want = torch.nonzero(tmax > tmin)[:, 0].to(torch.int32)
+    assert torch.equal(live[live >= 0], want)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """Without a device the scene, camera, film and tables land on cuda."""
+    from oppositerenderer_tpu_torch.film import Film
+    scene, cam = get_scene_by_name("CornellSmall")
+    assert scene.device.type == "cuda" and cam.eye.device.type == "cuda"
+    assert scene.lights.kind.device.type == "cuda"
+    assert Film.create(4, 4).accum.device.type == "cuda"

@@ -39,7 +39,7 @@ def make_photons(n=4096, seed=0, cluster=False, frac_valid=0.85):
 
 def both_batches(leaves):
     jb = jpm.PhotonBatch(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    return jb, interop.photon_batch_from_numpy(leaves)
+    return jb, interop.photon_batch_from_numpy(leaves, "cpu")
 
 
 def grid_leaves(g) -> dict:
@@ -116,7 +116,7 @@ def test_cell_helpers_and_kernel_weight_match_jax():
 def test_gather_cell_indices_equal(budget, with_u):
     jb, tb = both_batches(make_photons(cluster=True))
     jg = jpm.build_photon_grid(jb, 16)
-    tg = interop.photon_grid_from_numpy(grid_leaves(jg))
+    tg = interop.photon_grid_from_numpy(grid_leaves(jg), "cpu")
     q, _ = queries()
     u = np.random.default_rng(2).uniform(size=q.shape[0]).astype(np.float32)
     want = jpm.gather_cell_indices(

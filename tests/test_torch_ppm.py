@@ -71,13 +71,13 @@ def iteration_pair():
     seed and radius; JAX takes its tile gather (interpret mode), jitted:
     one compile costs half of the eager call's."""
     js, jc = jax_scene("CornellSmall")
-    r2 = Renderer(*get_scene_by_name("CornellSmall"), port_cfg(),
+    r2 = Renderer(*get_scene_by_name("CornellSmall", "cpu"), port_cfg(),
                   seed=SEED).ppm_initial_radius ** 2
     cfg = jax_cfg(use_pallas_gather=True)
     want, wst = jax.jit(lambda s, c, k, r: jppm.render_iteration(
         s, c, cfg, jnp.int32(0), k, r))(js, jc, jrng.make_root_key(SEED),
                                         jnp.float32(r2))
-    ts, tc = get_scene_by_name("CornellSmall")
+    ts, tc = get_scene_by_name("CornellSmall", "cpu")
     got, gst = ppm.render_iteration(ts, tc, port_cfg(), 0,
                                     make_root_key(SEED), r2)
     return (got.numpy(), {k: float(v) for k, v in gst.items()},
@@ -102,7 +102,7 @@ def test_one_iteration_matches_jax_tiled_gather(iteration_pair):
 def test_emit_photons_matches_jax(name):
     """Area light; distant point light (disc mode); point light inside."""
     js, _ = jax_scene(name)
-    ts, _ = get_scene_by_name(name)
+    ts, _ = get_scene_by_name(name, "cpu")
     key = jrng.iteration_key(jrng.make_root_key(SEED), 0, ppm.PASS_PPM_PHOTON)
     want = jppm.emit_photons(js, jrng.LaneSampler(
         key, jnp.arange(4096, dtype=jnp.int32)))
@@ -121,7 +121,7 @@ def _extent(scene):
 @pytest.mark.parametrize("name", ["CornellSmall", "CornellSmallLargeSphere"])
 def test_trace_eye_pass_matches_jax(name):
     js, jc = jax_scene(name)
-    ts, tc = get_scene_by_name(name)
+    ts, tc = get_scene_by_name(name, "cpu")
     n = SIZE * SIZE
     jpx, jpy = jcommon.pixel_coords(SIZE, SIZE)
     want = jax.jit(lambda s, c, k: jppm.trace_eye_pass(
@@ -152,7 +152,7 @@ def test_trace_photon_pass_matches_jax():
     """Deposit rows come out depth-major and agree row by row."""
     name = "CornellSmallLargeSphere"
     js, _ = jax_scene(name)
-    ts, _ = get_scene_by_name(name)
+    ts, _ = get_scene_by_name(name, "cpu")
     n = 4096
     want, _, wst = jax.jit(lambda s, k: jppm.trace_photon_pass(
         s, jax_cfg(), k, jcommon.scene_epsilon(s),
@@ -181,7 +181,7 @@ def test_trace_photon_pass_matches_jax():
 
 
 def small_renderer(**kw):
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     cfg = RenderConfig(width=16, height=16, render_method=PPM,
                        photons_per_iteration=1 << 10,
                        photon_grid_resolution=8, **kw)

@@ -47,7 +47,7 @@ def test_one_iteration_matches_jax_pixel_by_pixel():
     jr = jrenderer.Renderer(jscene, jcam, JConfig(
         **cfg, use_pallas=False, iterations_per_dispatch=1), seed=7)
     want = np.asarray(jr.render(1).mean_radiance())
-    tscene, tcam = get_scene_by_name("CornellSmall")
+    tscene, tcam = get_scene_by_name("CornellSmall", "cpu")
     got = Renderer(tscene, tcam, RenderConfig(**cfg), seed=7).render(
         1).mean_radiance().numpy()
     agree = np.isclose(got, want, rtol=1e-4, atol=0.0).all(axis=-1)
@@ -71,7 +71,7 @@ def test_matches_pt_golden(name):
     up to ``GOLDEN_MAX_FLIPPED`` pixels may hold a path that went the other
     way at that z-fight (8 of 4096 measured); the image mean must still
     agree within ``GOLDEN_MEAN_RTOL``."""
-    scene, cam = get_scene_by_name(name)
+    scene, cam = get_scene_by_name(name, "cpu")
     r = Renderer(scene, cam, chip_smoke.golden_pt_config(),
                  seed=chip_smoke.GOLDEN_SEED)
     img = r.render(chip_smoke.GOLDEN_ITERS).mean_radiance().numpy()
@@ -84,7 +84,7 @@ def test_matches_pt_golden(name):
 
 
 def small_renderer(**kw):
-    scene, cam = get_scene_by_name("CornellSmallSmallSpheres")
+    scene, cam = get_scene_by_name("CornellSmallSmallSpheres", "cpu")
     return Renderer(scene, cam, RenderConfig(width=24, height=16, **kw),
                     seed=3)
 
@@ -159,7 +159,7 @@ def test_config_validation_and_later_slices():
     assert RenderConfig(pt_direct_light_sampling=False).pt_max_segments == 10
     # BVH scenes are in; scene files still belong to a later slice
     with pytest.raises(NotImplementedError, match="scene-import slice"):
-        get_scene_by_name("conference.obj")
+        get_scene_by_name("conference.obj", "cpu")
     # the stochastic hash and the kd-tree wait for a later PPM slice
     from oppositerenderer_tpu_torch.config import PhotonMapStructure
     r = small_renderer(

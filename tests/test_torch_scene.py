@@ -67,15 +67,15 @@ def test_scene_names_match_the_golden_scenes():
 @pytest.mark.parametrize("name", SCENE_NAMES)
 def test_scene_and_camera_fields_match_jax(name):
     jscene, jcam = jax_scene(name)
-    tscene, tcam = get_scene_by_name(name)
+    tscene, tcam = get_scene_by_name(name, "cpu")
     jl = leaves(jscene)
     assert_records_equal(tscene, jl)
     assert jl["textures"].shape[0] == 0 and jl["bvh"] is None
     assert tscene.name == jscene.name
     assert_records_equal(tcam, leaves(jcam))
     # interop: the JAX scene's leaves give the port's own build
-    assert_records_equal(interop.scene_from_numpy(jl), jl)
-    assert_records_equal(interop.camera_from_numpy(leaves(jcam)),
+    assert_records_equal(interop.scene_from_numpy(jl, "cpu"), jl)
+    assert_records_equal(interop.camera_from_numpy(leaves(jcam), "cpu"),
                          leaves(jcam))
 
 
@@ -84,13 +84,13 @@ def test_unknown_and_later_slice_inputs_raise():
     Conference and textured scenes are in (tests/test_torch_bvh_scenes.py,
     tests/test_torch_texture.py)."""
     with pytest.raises(NotImplementedError, match="scene-import slice"):
-        get_scene_by_name("sponza.dae")
+        get_scene_by_name("sponza.dae", "cpu")
     jl = leaves(jax_scene("CornellSmall")[0])
     jl["textures"] = np.zeros((1, 4, 4, 3), np.float32)
-    assert interop.scene_from_numpy(jl).has_textures
+    assert interop.scene_from_numpy(jl, "cpu").has_textures
     jl["medium"] = {"sigma_s": np.float32(0.5)}
     with pytest.raises(NotImplementedError, match="media slice"):
-        interop.scene_from_numpy(jl)
+        interop.scene_from_numpy(jl, "cpu")
     with pytest.raises(ValueError):
         interop.key_from_numpy(np.zeros(3, np.uint32))
 
@@ -99,7 +99,8 @@ def test_unknown_and_later_slice_inputs_raise():
 def test_camera_rays_match_jax(aperture):
     args = dict(eye=(1.25, 1.25, -2.85), lookat=(1.25, 1.25, 0),
                 hfov=45.0, vfov=40.0, aperture=aperture)
-    jcam, tcam = JCamera.make(**args), Camera.make(**args)
+    jcam = JCamera.make(**args)
+    tcam = Camera.make(**args, device="cpu")
     rng = np.random.default_rng(3)
     px = rng.integers(0, 64, 2000)
     py = rng.integers(0, 48, 2000)
@@ -120,7 +121,8 @@ def test_camera_rays_match_jax(aperture):
 def test_camera_pan_and_dolly_match_jax():
     args = dict(eye=(278, 273, -850), lookat=(278, 273, 0), hfov=35.0,
                 vfov=35.0)
-    jcam, tcam = JCamera.make(**args), Camera.make(**args)
+    jcam = JCamera.make(**args)
+    tcam = Camera.make(**args, device="cpu")
     for jc, tc in ((jcam.translate(3.0, -2.0), tcam.translate(3.0, -2.0)),
                    (jcam.dolly(0.25), tcam.dolly(0.25))):
         for f in ("eye", "lookdir", "camera_u", "camera_v"):
@@ -134,7 +136,7 @@ def test_film_display_and_checkpoints_interchange_with_jax(tmp_path):
     rad = [rng.random((6, 5, 3), dtype=np.float32) * 3 for _ in range(3)]
     rad[1][0, 0, 0] = np.nan
     jf = jfilm.Film.create(5, 6)
-    tf = tfilm.Film.create(5, 6)
+    tf = tfilm.Film.create(5, 6, "cpu")
     for r in rad:
         jf = jf.add_iteration(jnp.asarray(r))
         tf = tf.add_iteration(torch.as_tensor(r))
@@ -154,7 +156,8 @@ def test_film_display_and_checkpoints_interchange_with_jax(tmp_path):
     np.testing.assert_array_equal(np.asarray(jkey), [0, 11])
     jfilm.save_checkpoint(tmp_path / "jax.npz", jf2, jkey, 0.5,
                           extra={"note": np.arange(2)})
-    tf2, tkey, r2, extra = tfilm.load_checkpoint(tmp_path / "jax.npz")
+    tf2, tkey, r2, extra = tfilm.load_checkpoint(tmp_path / "jax.npz",
+                                                  "cpu")
     assert tkey == key and tf2.iterations == 3 and r2 == 0.5
     np.testing.assert_array_equal(extra["note"], np.arange(2))
     np.testing.assert_array_equal(tf2.accum.numpy(), tf.accum.numpy())

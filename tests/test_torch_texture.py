@@ -45,7 +45,7 @@ def test_resize_is_pils(shape):
 @pytest.mark.parametrize("name", ["Atrium:0.1", "Conference:0.15"])
 def test_atlases_match_jax(name):
     jscene, _ = jax_scene(name)
-    tscene, _ = get_scene_by_name(name)
+    tscene, _ = get_scene_by_name(name, "cpu")
     for f in ("textures", "normal_maps"):
         want = np.asarray(getattr(jscene, f))
         got = getattr(tscene, f).numpy()
@@ -55,7 +55,7 @@ def test_atlases_match_jax(name):
 
 
 def test_empty_atlas_matches_jax():
-    np.testing.assert_array_equal(ttex.build_atlas([]).numpy(),
+    np.testing.assert_array_equal(ttex.build_atlas([], device="cpu").numpy(),
                                   np.asarray(jtex.build_atlas([])))
 
 
@@ -89,7 +89,7 @@ def test_sampling_and_normal_map_match_jax():
 
 def test_textured_bsdf_at_hit_matches_jax():
     jscene, jcam = jax_scene("Atrium:0.1")
-    tscene, tcam = get_scene_by_name("Atrium:0.1")
+    tscene, tcam = get_scene_by_name("Atrium:0.1", "cpu")
     W = H = 32
     py, px = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     jitter = np.random.default_rng(2).random((W * H, 2), dtype=np.float32)

@@ -68,7 +68,7 @@ def port_cfg(**kw):
 
 
 def radius_sq():
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     return Renderer(scene, cam, port_cfg(), seed=SEED).ppm_initial_radius ** 2
 
 
@@ -76,7 +76,7 @@ def render_pair(name="CornellSmall", **kw):
     """One VCM iteration through both packages at the same seed and merge
     radius; JAX's jitted (one compile costs less than its eager call)."""
     js, jc = jax_scene(name)
-    ts, tc = get_scene_by_name(name)
+    ts, tc = get_scene_by_name(name, "cpu")
     r2 = radius_sq()
     jcfg = jax_cfg(**kw)
     want, wst = jax.jit(lambda s, c, k, r: jvcm.render_iteration(
@@ -114,7 +114,7 @@ def test_one_iteration_matches_jax(iteration_pair):
 
 def _light_inputs(name, n=2048, seed=3):
     js, _ = jax_scene(name)
-    ts, _ = get_scene_by_name(name)
+    ts, _ = get_scene_by_name(name, "cpu")
     rng = np.random.default_rng(seed)
     li = rng.integers(0, ts.lights.n_lights, n)
     u = rng.uniform(size=(3, n, 2)).astype(np.float32)
@@ -184,7 +184,7 @@ def test_distant_point_light_emits_into_the_cone():
 def test_camera_pdf_quantities_and_world_to_raster_match_jax(name):
     W, H = 48, 32
     _, jcam = jax_scene(name)
-    scene, cam = get_scene_by_name(name)
+    scene, cam = get_scene_by_name(name, "cpu")
     rng = np.random.default_rng(5)
     d = rng.normal(size=(4096, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -213,7 +213,7 @@ def test_light_pass_matches_jax():
     by pixel."""
     name = "CornellSmallLargeSphere"
     js, jc = jax_scene(name)
-    ts, tc = get_scene_by_name(name)
+    ts, tc = get_scene_by_name(name, "cpu")
     n = SIZE * SIZE
     cfg = dict(vcm_max_path_length=6)
     mis_vc_w, mis_vm_w = 0.3, 0.002
@@ -264,7 +264,7 @@ def test_matches_vcm_golden(name):
     up to ``VCM_GOLDEN_MAX_FLIPPED`` pixels may hold a path that went the
     other way there (18 of 4096 measured), the image mean within
     ``GOLDEN_MEAN_RTOL``."""
-    scene, cam = get_scene_by_name(name)
+    scene, cam = get_scene_by_name(name, "cpu")
     r = Renderer(scene, cam, chip_smoke.golden_vcm_config(),
                  seed=chip_smoke.GOLDEN_SEED)
     img = r.render(chip_smoke.GOLDEN_VCM_ITERS).mean_radiance().numpy()
@@ -295,7 +295,7 @@ def test_ablation_is_a_part_of_the_total(iteration_pair):
     """The techniques partition the estimator: without t=1 and s=1 the
     image loses energy, never gains."""
     total = iteration_pair[0]
-    ts, tc = get_scene_by_name("CornellSmall")
+    ts, tc = get_scene_by_name("CornellSmall", "cpu")
     part, _ = vcm.render_iteration(
         ts, tc, port_cfg(vcm_connect_light_s1=False,
                          vcm_connect_camera_t1=False), 0,
@@ -319,7 +319,7 @@ def test_mis_factors_are_float32_jax_ones():
 
 
 def test_renderer_renders_vcm_with_its_stats():
-    scene, cam = get_scene_by_name("CornellSmallSmallSpheres")
+    scene, cam = get_scene_by_name("CornellSmallSmallSpheres", "cpu")
     r = Renderer(scene, cam, RenderConfig(width=24, height=16,
                                           render_method=VCM), seed=3)
     img = r.render(2).mean_radiance()
@@ -331,7 +331,7 @@ def test_renderer_renders_vcm_with_its_stats():
 
 
 def test_vm_on_an_image_without_tiles_takes_the_budget_merge():
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     r = Renderer(scene, cam, RenderConfig(
         width=20, height=12, render_method=VCM, vcm_use_vm=True,
         vcm_max_path_length=4), seed=3)
@@ -376,7 +376,7 @@ def test_chip_smoke_configs_are_the_jax_ones():
 def test_vcm_agrees_with_pt():
     """Port-only statistics (``test_vcm.py:35``): every MIS weight, since
     wrong weights double-count or lose energy against PT."""
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     rv = Renderer(scene, cam, RenderConfig(width=48, height=48,
                                            render_method=VCM), seed=2)
     vcm_img = rv.render(24).mean_radiance().numpy()

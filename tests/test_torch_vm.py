@@ -11,6 +11,7 @@ JAX's interpret-mode tile kernel in another order: rtol 1e-4 plus atol
 1e-6 * max|ref|. Where nothing is subsampled the tile merge equals JAX's
 budgeted XLA merge at rtol 2e-4 (``test_vcm_vm.py:189``).
 """
+import dataclasses
 import functools
 import sys
 from pathlib import Path
@@ -163,10 +164,10 @@ def test_build_vertex_grid_is_bit_identical(light_store):
     store, want = light_store
     port_store = interop.light_vertex_store_from_numpy(
         {f: np.asarray(getattr(store, f))
-         for f in interop.LIGHT_VERTEX_FIELDS})
+         for f in interop.LIGHT_VERTEX_FIELDS}, "cpu")
     cfg = RenderConfig(**ITER_CFG, render_method=VCM)
-    got = vcm.build_vertex_grid(get_scene_by_name("CornellSmall")[0], cfg,
-                                port_store, torch.tensor(0.05))
+    scene = get_scene_by_name("CornellSmall", "cpu")[0]
+    got = vcm.build_vertex_grid(scene, cfg, port_store, torch.tensor(0.05))
     assert got.resolution == want.resolution
     assert int(np.asarray(want.offsets)[-1]) > 0
     for f in interop.VERTEX_GRID_ARRAYS:
@@ -183,6 +184,62 @@ def test_build_vertex_grid_of_the_clustered_case_is_bit_identical():
         np.testing.assert_array_equal(getattr(k["vgrid"], f).numpy(),
                                       np.asarray(getattr(want, f)),
                                       err_msg=f)
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_packed_records_equal_the_grid_fields(cluster):
+    """B4's kernel reads VertexGrid.packed: each vertex's fields, in
+    (position, dVCM), (wo, dVM), (throughput, cont), (depth, x, 0, 0), x
+    the x index of the grid cell that holds the vertex."""
+    _, _, k = chip_smoke.vm_case("cpu", 0, cluster)
+    g = k["vgrid"]
+    p = g.packed
+    assert p.shape == (g.position.shape[0], vk.RECORD)
+    assert p.dtype == torch.float32 and p.is_contiguous()
+    for cols, field in (((0, 3), "position"), ((3, 4), "dVCM"),
+                        ((4, 7), "wo"), ((7, 8), "dVM"),
+                        ((8, 11), "throughput"), ((11, 12), "cont"),
+                        ((12, 13), "depth")):
+        a = getattr(g, field)
+        torch.testing.assert_close(p[:, cols[0]:cols[1]],
+                                   a.reshape(a.shape[0], -1),
+                                   rtol=0, atol=0)
+    res = g.resolution
+    off = g.offsets.long()
+    n_in = int(off[-1])                  # vertices in some cell
+    cell = torch.repeat_interleave(torch.arange(res ** 3),
+                                   off[1:] - off[:-1])
+    assert torch.equal(p[:n_in, 13], (cell % res).to(torch.float32))
+    assert bool((p[n_in:, 13] == 0).all())
+    assert int(torch.count_nonzero(p[:, 14:])) == 0
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_slot_rows_hold_the_staged_windows(cluster):
+    """``_tile_tables``' slot rows: each non-empty window lies in the cells
+    of its (y,z) row, between the starts of the tile box's x cells, which
+    is what B4's kernel assumes when it cuts a window to a warp's box."""
+    scene, cfg, k = chip_smoke.vm_case("cpu", 0, cluster)
+    n = k["cam_pos"].shape[0]
+    u_rows = k["u_stride"].reshape(n // vk.TILE, vk.TILE)[:, :vk.ROWS + 2]
+    _, (starts, lens, _, rows, _, qtab, g), _, _ = vk.merge_tables(
+        k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
+        k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"], u_rows,
+        k["depth1"])
+    res = g.resolution
+    off = g.offsets.long()
+    used = lens > 0
+    assert bool(used.any())
+    base = rows.long()[used]
+    assert bool((base % res == 0).all())          # the x = 0 cell of a row
+    y, z = (base // res) % res, base // (res * res)
+    s, e = starts.long()[used], (starts + lens).long()[used]
+    assert bool((off[base] <= s).all()) and bool((e <= off[base + res]).all())
+    # the window's cells: those of its first and last vertex lie in row
+    cell = torch.searchsorted(off, s, right=True) - 1
+    assert torch.equal((cell // res) % res, y)
+    assert torch.equal(cell // (res * res), z)
+    assert bool((rows >= 0).all()) and bool((rows < res ** 3).all())
 
 
 def test_query_table_matches_jax():
@@ -209,7 +266,7 @@ def test_tile_merge_plain_matches_jax_tile_kernel(cluster):
     cfg, _, _, jgrid, jk = jax_case(0, cluster)
     want = jax_tiled(cfg, jgrid, jk)
     got = port_merge(cluster, vgrid=interop.vertex_grid_from_numpy(
-        grid_leaves(jgrid)))
+        grid_leaves(jgrid), "cpu"))
     assert np.asarray(want).max() > 0.0
     assert np.isfinite(got.numpy()).all()
     assert_close(got.numpy(), want)
@@ -286,11 +343,13 @@ def test_kernel_wrapper_checks_its_inputs():
         k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
         k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"], u_rows,
         k["depth1"])
+    vgrid = args[6]
     for i, bad, match in ((0, args[0].long(), "int32"),
-                          (3, args[3][:3], "shape"),
-                          (4, args[4].double(), "float32"),
+                          (4, args[4][:3], "shape"),
+                          (5, args[5].double(), "float32"),
                           (5, args[5].T.contiguous().T, "contiguous"),
-                          (9, args[9][:-1], "shape")):
+                          (6, dataclasses.replace(
+                              vgrid, packed=vgrid.packed[:, :12]), "shape")):
         a = list(args)
         a[i] = bad
         with pytest.raises(ValueError, match=match):
@@ -298,7 +357,7 @@ def test_kernel_wrapper_checks_its_inputs():
 
 
 def test_vm_requires_a_grid():
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     cfg = RenderConfig(width=16, height=16, render_method=VCM,
                        vcm_use_vm=True)
     lanes = torch.arange(256)
@@ -315,7 +374,7 @@ def vm_iteration_pair():
     packages; JAX takes its tile merge in interpret mode
     (vcm_vm_use_pallas=True), as the port takes its tile merge."""
     js, jc = jax_scene("CornellSmall")
-    ts, tc = get_scene_by_name("CornellSmall")
+    ts, tc = get_scene_by_name("CornellSmall", "cpu")
     cfg = RenderConfig(**ITER_CFG, render_method=VCM)
     r2 = Renderer(ts, tc, cfg, seed=SEED).ppm_initial_radius ** 2
     jcfg = JConfig(**ITER_CFG, render_method=VCM, vcm_vm_use_pallas=True)
@@ -350,7 +409,7 @@ def test_vm_iteration_is_deterministic_and_light_pass_unchanged(
     number of vertices, and a second VM run repeats the image bit for
     bit."""
     got, gst, _, _, _ = vm_iteration_pair
-    ts, tc = get_scene_by_name("CornellSmall")
+    ts, tc = get_scene_by_name("CornellSmall", "cpu")
     cfg = RenderConfig(**ITER_CFG, render_method=VCM)
     r2 = Renderer(ts, tc, cfg, seed=SEED).ppm_initial_radius ** 2
     again, st = vcm.render_iteration(ts, tc, cfg, 0, make_root_key(SEED),
@@ -363,7 +422,7 @@ def test_vm_iteration_is_deterministic_and_light_pass_unchanged(
 def test_vcm_vm_agrees_with_pt():
     """Port-only statistics (``test_vcm_vm.py:61``): full VCM with merging
     and PT estimate the same image."""
-    scene, cam = get_scene_by_name("CornellSmall")
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
     rv = Renderer(scene, cam, RenderConfig(width=48, height=48,
                                            render_method=VCM,
                                            vcm_use_vm=True), seed=13)
