@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-or, to time an earlier tree's B4 and B5 in turns with this one's (phase
+or, to time an earlier tree's B2-B5 in turns with this one's (phase
 parent-ab), with that tree's kernel sources unpacked under a directory
 (``git archive <commit> oppositerenderer_tpu_torch/csrc``):
 
@@ -14,18 +14,24 @@ Phases, in order, one line (or a few) of output each; any failure raises
 and the script exits non-zero without printing the result line:
 
 1. device      - a CUDA device must be present; prints its name, the torch
-                 and CUDA versions and ``nvidia-smi``'s name and power limit.
-2. build       - one nvcc call compiles ``csrc/intersect.cu``,
-                 ``csrc/gather.cu``, ``csrc/vm.cu`` and ``csrc/bvh.cu`` for
-                 sm_90a into one library; prints its cache key, the build
-                 time and ptxas' registers and spills. Then g++ must build
-                 the host BVH builder (``native/bvh_builder.cpp``).
+                 and CUDA versions, ``nvidia-smi``'s name and power limit,
+                 and PIL's version (or "absent").
+2. build       - one nvcc per source, all started together, compiles
+                 ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``
+                 and ``csrc/bvh.cu`` for sm_90a, and one more links them into
+                 one library; prints its cache key, the build time and
+                 ptxas' registers and spills. Then g++ must build the host
+                 BVH builder (``native/bvh_builder.cpp``).
 3. kernels     - each kernel against its plain PyTorch version on the same
                  CUDA tensors. B1 and B2 (random rays from a numpy seed, at
-                 the PT path's shape and beyond) must be equal bit for bit
-                 (the library is built with --fmad=false). B3 on three
-                 inputs: the synthetic case of tests/test_pallas_gather.py
-                 (check_normal on and off), its clustered variant with
+                 the PT path's shape and beyond; B2 also on occluder tables
+                 of 32 and 4096 triangles with mixed, all dead and all live
+                 lanes, and on every shadow-ray call of one CornellSmall
+                 512^2 VCM iteration, each timed against its live lanes and
+                 summed) must be equal bit for bit (the library is built
+                 with --fmad=false). B3 with check_normal on and off on
+                 three inputs: the synthetic case of
+                 tests/test_pallas_gather.py, its clustered variant with
                  random u_rows (row and chunk subsampling), and the grid and
                  hitpoints of one CornellSmall 512^2 PPM iteration with 1<<20
                  photons; stats equal, sums within rtol 1e-4 + 1e-6 max|ref|.
@@ -42,17 +48,20 @@ and the script exits non-zero without printing the result line:
                  random rays in CornellSmall with a BVH, its live-lane
                  compaction against its plain version on each; prints the
                  rows, slab tests and triangle tests of each ray. Times
-                 kernels (medians of 20 samples of 10 calls in a row) and
-                 plain versions with CUDA events, B4 on every
+                 kernels (device time: medians of 20 replays of a CUDA
+                 graph of 10 calls) and plain versions (enqueued from the
+                 host) with CUDA events, B4 on every
                  merge round and B5 on every call of both iterations (the
                  sums: per-iteration kernel ms), and each kernel's bound
                  (the least time of the card for the same work: for B3/B4
                  the pairs each query needs, for B5 the tests and row
                  floats the traversal needs, from the plain version's
                  counts). With ``--parent``: phase parent-ab, the earlier
-                 tree's B4 and B5 built by the same nvcc call and timed in
-                 turns with this tree's on every call of those iterations,
-                 their outputs compared.
+                 tree's B2-B5 built by the same nvcc flags and timed in
+                 turns with this tree's (B2 over one VCM iteration, its
+                 per-technique launches against this tree's batches on the
+                 same rays; B3 at the PPM main shape; B4 and B5 on every
+                 call of their iterations), their outputs compared.
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -74,8 +83,9 @@ and the script exits non-zero without printing the result line:
                  the card and on the CPU, pixel by pixel.
 11. vcm-main   - VCM on CornellSmall at 512x512, default RenderConfig (L=10),
                  seed 0: one warm-up render, then 3 timed reps of 5
-                 iterations; each rep must launch B1 5 x 19 and B2 5 x 109
-                 times. Then one profiled iteration.
+                 iterations; each rep must launch B1 5 x 19 and B2 5 x 19
+                 times (one any hit per light bounce, one per camera bounce
+                 for all its shadow rays). Then one profiled iteration.
 12. vcm-vm-main - the same with vertex merging, 2 iterations a rep; B4 must
                  launch 2 x 10 times too.
 13. bvh-goldens - the eight Cornell scenes with a BVH attached, at the golden
@@ -335,22 +345,37 @@ def query_pairs(grid, qpos, radius, starts, lens, valid=None) -> int:
 
 
 def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3,
-            batch: int = LAUNCHES_PER_SAMPLE) -> float:
+            batch: int = LAUNCHES_PER_SAMPLE, graph: bool = True) -> float:
     """Device time of one call of ``fn`` in ms: the median over ``reps``
-    samples, each the CUDA-event time of ``batch`` calls in a row divided
-    by ``batch``, so that the host's enqueue of a call (the wrapper's
-    checks and allocations) overlaps the device's work on the one before
-    instead of being timed as device time."""
+    samples, each the CUDA-event time of one replay of a CUDA graph that
+    holds ``batch`` calls in a row, divided by ``batch``. The graph leaves
+    out the host's enqueue of each call (the wrapper's checks and
+    allocations), which takes longer than the device's work on the B1 and
+    B2 launches of the main paths. With ``graph`` False the ``batch`` calls
+    are enqueued from the host, as a caller makes them: the time is the
+    host's where the host is slower. Plain versions, which wait on the
+    device, are timed so."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(batch):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(batch):
+                fn()
+    run()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(batch):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
@@ -368,6 +393,13 @@ def phase_device() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])   # name, power limit
+    # film.save_png needs PIL; scene import will read images
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = "absent"
+    print(f"[device] PIL {pil}")
     return name
 
 
@@ -377,8 +409,9 @@ def phase_build() -> None:
     sources = " ".join(str(src.relative_to(REPO))
                        for src in cuda_build.SOURCES)
     print(f"[build] cache key {cuda_build.cache_key()}: {sources} -> "
-          f"{path.relative_to(REPO)} in {seconds:.2f} s (nvcc "
-          f"{' '.join(cuda_build.NVCC_FLAGS)})")
+          f"{path.relative_to(REPO)} in {seconds:.2f} s (one nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)} -c per source, all at once; "
+          f"then nvcc {' '.join(cuda_build.LINK_FLAGS)})")
     for line in log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
@@ -417,14 +450,13 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> float:
 
 def phase_kernels(dev) -> dict:
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-    from oppositerenderer_tpu_torch.accel.intersect import occluder_mask
+    from oppositerenderer_tpu_torch.accel.intersect import dense_tables
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
 
     def scene_case(name):
         scene, _ = get_scene_by_name(name, dev)
-        g = scene.geometry
-        return (ik.tri9_from_geometry(g), occluder_mask(scene, g.tri_mat),
-                scene.aabb_min.tolist(), scene.aabb_max.tolist())
+        return (*dense_tables(scene), scene.aabb_min.tolist(),
+                scene.aabb_max.tolist())
 
     rng = np.random.default_rng(4096)
     v0 = rng.uniform(0.0, 10.0, (4096, 3))
@@ -432,7 +464,8 @@ def phase_kernels(dev) -> dict:
     e2 = rng.normal(0.0, 0.5, (4096, 3))
     soup9 = torch.as_tensor(np.concatenate([v0.T, e1.T, e2.T]).astype(
         np.float32), device=dev).contiguous()
-    soup_occ = torch.as_tensor(rng.random(4096) < 0.9, device=dev)
+    soup_occ = ik.occluder_records(soup9, torch.as_tensor(
+        rng.random(4096) < 0.9, device=dev))
     n_main = MAIN_SIZE * MAIN_SIZE
     cases = [
         ("CornellSmall", n_main, *scene_case("CornellSmall")),
@@ -442,7 +475,7 @@ def phase_kernels(dev) -> dict:
         ("CornellSmall", 131, *scene_case("CornellSmall")),
     ]
     out = {name: {"max_abs_err": 0.0} for name in KERNELS}
-    for i, (name, n, tri9, occ_mask, lo, hi) in enumerate(cases):
+    for i, (name, n, tri9, occ_tab, lo, hi) in enumerate(cases):
         o, d, tmin, tmax = _rays(n, 100 + i, lo, hi, dev)
         got = ik.closest_hit_tris(o, d, tmin, tmax, tri9)
         want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tri9)
@@ -455,8 +488,8 @@ def phase_kernels(dev) -> dict:
                     f"closest_hit_tris differs from its plain version on "
                     f"{name} n={n}: {label} differs in {bad} rays "
                     f"(max |err| on hits {err:.3g})")
-        occ = ik.occluded_tris(o, d, tmin, tmax, tri9, occ_mask)
-        occ_plain = ik.occluded_tris_plain(o, d, tmin, tmax, tri9, occ_mask)
+        occ = ik.occluded_tris(o, d, tmin, tmax, occ_tab)
+        occ_plain = ik.occluded_tris_plain(o, d, tmin, tmax, occ_tab)
         if not torch.equal(occ, occ_plain):
             raise AssertionError(
                 f"occluded_tris differs from its plain version on {name} "
@@ -467,8 +500,8 @@ def phase_kernels(dev) -> dict:
         if name == MAIN_SCENE and n == n_main:   # the main path's shape
             out["closest_hit_tris"].update(dense_bound(o, d, tmin, tmax, tri9,
                                                        None))
-            out["occluded_tris"].update(dense_bound(o, d, tmin, tmax, tri9,
-                                                    occ_mask))
+            out["occluded_tris"].update(dense_bound(o, d, tmin, tmax, None,
+                                                    occ_tab))
         if n == n_main:
             ms = {
                 "closest_hit_tris": (
@@ -476,42 +509,152 @@ def phase_kernels(dev) -> dict:
                                                         tri9)),
                     cuda_ms(lambda: ik.closest_hit_tris_plain(o, d, tmin,
                                                               tmax, tri9),
-                            batch=1)),
+                            batch=1, graph=False)),
                 "occluded_tris": (
-                    cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, tri9,
-                                                     occ_mask)),
+                    cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax,
+                                                     occ_tab)),
                     cuda_ms(lambda: ik.occluded_tris_plain(
-                        o, d, tmin, tmax, tri9, occ_mask), batch=1))}
+                        o, d, tmin, tmax, occ_tab), batch=1, graph=False))}
             timing = "; ms kernel/plain " + ", ".join(
                 f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in ms.items())
             if name == MAIN_SCENE:   # the main path's shape
                 for k, (a, b) in ms.items():
                     out[k].update(ms=a, plain_ms=b)
-        print(f"[kernels] {name} rays={n} tris={tri9.shape[1]}: equal to "
-              f"plain (hits {int(hit.sum())}, occluded {int(occ.sum())})"
-              f"{timing}")
+        print(f"[kernels] {name} rays={n} tris={tri9.shape[1]} occluders="
+              f"{occ_tab.shape[0]}: equal to plain (hits {int(hit.sum())}, "
+              f"occluded {int(occ.sum())}){timing}")
+    b2_lane_cases(dev, soup9)
+    out["occluded_tris"]["per_iteration"] = {
+        f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM": b2_vcm_iteration(dev)}
     out["gather_photons_tiled"] = gather_kernel_cases(dev)
     out["merge_vertices_tiled"] = vm_kernel_cases(dev)
     out.update(bvh_kernel_cases(dev))
     return out
 
 
-def dense_bound(o, d, tmin, tmax, tri9, occ_mask) -> dict:
-    """B1's (``occ_mask`` None) or B2's bound on these rays: every live ray
-    tests every triangle (B2: up to its first occluding hit); the rays, the
-    triangles and the results cross HBM once."""
+def b2_lane_cases(dev, soup9) -> None:
+    """B2 bit for bit against its plain version on occluder tables of 32
+    and 4096 triangles (every one an occluder), with a mix of dead and live
+    lanes, all lanes dead and all live; its time on each."""
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-    n, T = o.shape[0], tri9.shape[1]
-    live = tmax > tmin
-    if occ_mask is None:
-        tests = int(live.sum()) * T
-        return bound(n * (32 + 16) + T * 36, tests * MT_FLOPS)
-    *_, valid = ik._mt_terms(o, d, tmin, tmax, tri9)
-    blocked = valid & occ_mask[None, :]
-    first = torch.where(blocked.any(dim=1),
-                        blocked.int().argmax(dim=1) + 1, T)
-    tests = int(torch.where(live, first, 0).sum())
-    return bound(n * (32 + 1) + T * 37, tests * MT_FLOPS)
+    n = MAIN_SIZE * MAIN_SIZE
+    for T in (32, 4096):
+        occ_tab = ik.occluder_records(
+            soup9[:, :T].contiguous(),
+            torch.ones(T, dtype=torch.bool, device=dev))
+        rays = _rays(n, 200 + T, [0.0] * 3, [10.0] * 3, dev)
+        for kind, (o, d, tmin, tmax) in (
+                ("mixed", rays), ("all dead", dead_or_live(rays, False)),
+                ("all live", dead_or_live(rays, True))):
+            got = ik.occluded_tris(o, d, tmin, tmax, occ_tab)
+            want = ik.occluded_tris_plain(o, d, tmin, tmax, occ_tab)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"occluded_tris differs from its plain version on T={T} "
+                    f"{kind} in {int((got != want).sum())} rays")
+            ms = cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, occ_tab))
+            b = dense_bound(o, d, tmin, tmax, None, occ_tab)
+            print(f"[kernels] B2 T={T} {kind}: rays={n} live "
+                  f"{int((tmax > tmin).sum())}, occluded {int(got.sum())}; "
+                  f"equal bit for bit; ms kernel {ms:.4f}, bound "
+                  f"{b['bound_ms']:.4f} ({b['bound_by']})")
+
+
+def vcm_shadow_calls(dev):
+    """Every call of B2's wrapper in one CornellSmall 512^2 VCM iteration
+    (iteration 0, seed 0, the bench's VCM configuration, L = 10): the t=1
+    splats' shadow rays of each light bounce, then each camera bounce's
+    batch of its s=1 and vertex-connection shadow rays. Returns (cfg,
+    [(o, d, tmin, tmax, occ)] in call order)."""
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    isect = importlib.import_module(
+        "oppositerenderer_tpu_torch.accel.intersect")
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    cfg = vcm_main_config()
+    calls = []
+    wrapper = isect.occluded_tris
+
+    def record(o, d, tmin, tmax, occ, chunk_size=None):
+        calls.append((o, d, tmin, tmax, occ))
+        return wrapper(o, d, tmin, tmax, occ, chunk_size)
+
+    isect.occluded_tris = record
+    try:
+        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
+    finally:
+        isect.occluded_tris = wrapper
+    L = cfg.vcm_max_path_length
+    if len(calls) != (L - 1) + L:
+        raise AssertionError(f"{len(calls)} shadow-ray calls in one VCM "
+                             f"iteration, expected {(L - 1) + L}")
+    return cfg, calls
+
+
+def b2_vcm_iteration(dev) -> dict:
+    """B2 on every shadow-ray call of one CornellSmall 512^2 VCM iteration:
+    bit for bit against its plain version, each call timed against its
+    live lanes and its bound; the sums are B2's time and bound per VCM
+    iteration."""
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    _, calls = vcm_shadow_calls(dev)
+    it = {"calls": 0, "lanes": 0, "live": 0, "ms": 0.0, "bound_ms": 0.0}
+    for i, (o, d, tmin, tmax, occ_tab) in enumerate(calls):
+        got = ik.occluded_tris(o, d, tmin, tmax, occ_tab)
+        want = ik.occluded_tris_plain(o, d, tmin, tmax, occ_tab)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"occluded_tris differs from its plain version on VCM "
+                f"shadow-ray call {i} in {int((got != want).sum())} rays")
+        ms = cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, occ_tab))
+        b = dense_bound(o, d, tmin, tmax, None, occ_tab)
+        n, live = o.shape[0], int((tmax > tmin).sum())
+        it["calls"] += 1
+        it["lanes"] += n
+        it["live"] += live
+        it["ms"] += ms
+        it["bound_ms"] += b["bound_ms"]
+        print(f"[kernels] B2 {MAIN_SCENE} {MAIN_SIZE}^2 VCM shadow call {i}: "
+              f"lanes {n}, live {live} ({live / n:.4f}), occluded "
+              f"{int(got.sum())}; equal bit for bit; ms kernel {ms:.4f}, "
+              f"bound {b['bound_ms']:.4f} ({b['bound_by']})")
+    print(f"[kernels] B2 per {MAIN_SCENE} {MAIN_SIZE}^2 VCM iteration: "
+          f"{it['calls']} launches {it['ms']:.4f} ms over {it['lanes']} "
+          f"lanes ({it['live']} live); bound {it['bound_ms']:.4f} ms")
+    return it
+
+
+def _first_blocker(o, d, tmin, tmax, tri9, chunk=16384):
+    """Per ray, the tests any hit makes over ``tri9``'s triangles in order:
+    up to and including its first hit, all of them on a miss, none on a
+    dead lane (the plain version's arithmetic, in chunks of rays)."""
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    T = tri9.shape[1]
+    parts = []
+    for s in range(0, o.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        *_, valid = ik._mt_terms(o[sl], d[sl], tmin[sl], tmax[sl], tri9)
+        first = torch.where(valid.any(dim=1),
+                            valid.int().argmax(dim=1) + 1, T)
+        parts.append(torch.where(tmax[sl] > tmin[sl], first, 0))
+    return torch.cat(parts)
+
+
+def dense_bound(o, d, tmin, tmax, tri9, occ_tab) -> dict:
+    """B1's (``tri9``) or B2's (``occ_tab``) bound on these rays. B1:
+    every live ray tests every triangle; the rays, the triangles and the
+    results cross HBM once. B2: every live ray tests the occluders up to
+    its first hit; every lane's tmin, tmax and flag, the live lanes' o and
+    d and the occluder table cross HBM once."""
+    n = o.shape[0]
+    live = int((tmax > tmin).sum())
+    if occ_tab is None:
+        T = tri9.shape[1]
+        return bound(n * (32 + 16) + T * 36, live * T * MT_FLOPS)
+    tri9 = occ_tab[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]].T.contiguous()
+    tests = int(_first_blocker(o, d, tmin, tmax, tri9).sum())
+    return bound(n * (8 + 1) + live * 24 + occ_tab.shape[0] * 36,
+                 tests * MT_FLOPS)
 
 
 def gather_case(dev, n_photons=4096, n_tiles=2, radius=0.12, seed=0,
@@ -575,30 +718,26 @@ def ppm_gather_inputs(dev):
 
 
 def gather_kernel_cases(dev) -> dict:
-    """B3 against its plain version on the card: the tables (and so the
-    stats) computed on the card must equal those computed on the CPU, and
-    the kernel's sums the plain version's within GATHER_RTOL +
-    GATHER_ATOL_REL * max|ref|."""
+    """B3 against its plain version on the card, with check_normal on and
+    off: the synthetic case, its clustered variant and the PPM main shape.
+    The tables (and so the stats) computed on the card must equal those
+    computed on the CPU, and the kernel's sums the plain version's within
+    GATHER_RTOL + GATHER_ATOL_REL * max|ref|. The PPM main shape with
+    check_normal on, the main path's call, is timed and bounded."""
     from oppositerenderer_tpu_torch.accel import gather_kernels as gk
     rng = np.random.default_rng(17)
-    cases = []
-    for check_normal in (True, False):
-        grid, q, qn, r = gather_case(dev)
-        cases.append((f"synthetic check_normal={check_normal}", grid, q, qn,
-                      r, torch.zeros((2, gk.ROWS + 2), device=dev),
-                      check_normal, None))
+    inputs = [("synthetic", *gather_case(dev),
+               torch.zeros((2, gk.ROWS + 2), device=dev), None)]
     grid, q, qn, r = gather_case(dev, n_photons=8192, cluster=True,
                                  radius=0.2)
-    cases.append(("clustered", grid, q, qn, r, torch.as_tensor(
+    inputs.append(("clustered", grid, q, qn, r, torch.as_tensor(
         rng.uniform(size=(2, gk.ROWS + 2)).astype(np.float32), device=dev),
-        True, None))
-    grid, q, qn, r, u_rows, found = ppm_gather_inputs(dev)
-    cases.append((f"{MAIN_SCENE} {MAIN_SIZE}^2 PPM", grid, q, qn, r, u_rows,
-                  True, found))
+        None))
+    inputs.append((f"{MAIN_SCENE} {MAIN_SIZE}^2 PPM",
+                   *ppm_gather_inputs(dev)))
 
     out = {"max_abs_err": 0.0}
-    for i, (label, grid, q, qn, r, u, check_normal, valid) in \
-            enumerate(cases):
+    for label, grid, q, qn, r, u, valid in inputs:
         tables = gk._tile_tables(grid, q, r, u, valid)
         cpu_tables = gk._tile_tables(
             _to(grid, "cpu"), q.cpu(), r.cpu() if torch.is_tensor(r) else r,
@@ -608,50 +747,58 @@ def gather_kernel_cases(dev) -> dict:
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"B3 {label}: the card's {name} table "
                                      "differs from the CPU's")
-        starts, lens, weights, visited, total, _ = tables
+        starts, lens, weights, visited, total, rows = tables
         r2 = torch.square(torch.as_tensor(r, dtype=torch.float32,
                                           device=dev))
-        args = (starts, lens, weights, r2, q, qn, grid.position, grid.power,
-                grid.direction, check_normal)
-        got = gk.gather_photons_tiled_kernel(*args)
-        want = gk.gather_photons_tiled_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs()
-        scale = float(want.abs().max())
-        bad = int((err > GATHER_RTOL * want.double().abs()
-                   + GATHER_ATOL_REL * scale).sum())
-        max_err = float(err.max())
-        if bad or not bool(torch.isfinite(got).all()) or scale <= 0.0:
-            raise AssertionError(
-                f"B3 differs from its plain version on {label}: {bad} sums "
-                f"outside the tolerance, max |err| {max_err:.3g} "
-                f"(max |ref| {scale:.3g})")
-        out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        timing = ""
-        if i == len(cases) - 1:   # the main path's shape
-            # each query against the staged photons in its own cell box;
-            # the photons in the windows, the queries, tables and sums
-            # cross HBM once
-            n_q, n_p = q.shape[0], grid.position.shape[0]
-            pairs = query_pairs(grid, q, r, starts, lens)
-            out.update(bound(
-                covered_rows(starts, lens, n_p) * 36 + n_q * (24 + 12)
-                + starts.numel() * 12, pairs * PAIR_FLOPS))
-            timing = (f"; pairs needed {pairs} of "
-                      f"{int(lens.long().sum()) * gk.TILE} staged")
-            out["ms"] = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
-            out["plain_ms"] = cuda_ms(
-                lambda: gk.gather_photons_tiled_plain(*args),
-                reps=PLAIN_GATHER_REPS, warmup=1, batch=1)
-            timing += (f"; ms kernel {out['ms']:.4f} (median of "
-                       f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
-                       f"(median of {PLAIN_GATHER_REPS})")
-        print(f"[kernels] B3 {label}: queries={q.shape[0]} photons="
-              f"{grid.position.shape[0]} (valid {int(grid.n_valid)}), "
-              f"visited {int(visited.sum())}, subsampled "
-              f"{int((total - visited).clamp_min(0).sum())}; stats equal, "
-              f"sums within tolerance (max |err| {max_err:.3g}, max |ref| "
-              f"{scale:.4g}){timing}")
+        for check_normal in (True, False):
+            args = (starts, lens, weights, rows, r2, q, qn, grid,
+                    check_normal)
+            got = gk.gather_photons_tiled_kernel(*args)
+            want = gk.gather_photons_tiled_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs()
+            scale = float(want.abs().max())
+            bad = int((err > GATHER_RTOL * want.double().abs()
+                       + GATHER_ATOL_REL * scale).sum())
+            max_err = float(err.max())
+            if bad or not bool(torch.isfinite(got).all()) or scale <= 0.0:
+                raise AssertionError(
+                    f"B3 differs from its plain version on {label} "
+                    f"check_normal={check_normal}: {bad} sums outside the "
+                    f"tolerance, max |err| {max_err:.3g} (max |ref| "
+                    f"{scale:.3g})")
+            out["max_abs_err"] = max(out["max_abs_err"], max_err)
+            timing = ""
+            if valid is not None and check_normal:   # the main path's call
+                # each query against the staged photons in its own cell
+                # box; the photons in the windows, the queries, tables and
+                # sums cross HBM once
+                n_q, n_p = q.shape[0], grid.position.shape[0]
+                pairs = query_pairs(grid, q, r, starts, lens)
+                k0, k1 = gk.culled_windows_plain(grid, q, r2, starts, lens,
+                                                 rows)
+                out.update(bound(
+                    covered_rows(starts, lens, n_p) * 36 + n_q * (24 + 12)
+                    + starts.numel() * 16, pairs * PAIR_FLOPS))
+                timing = (f"; pairs needed {pairs}, walked "
+                          f"{int((k1 - k0).sum())} of "
+                          f"{int(lens.long().sum()) * gk.TILE} staged")
+                out["ms"] = cuda_ms(
+                    lambda: gk.gather_photons_tiled_kernel(*args))
+                out["plain_ms"] = cuda_ms(
+                    lambda: gk.gather_photons_tiled_plain(*args),
+                    reps=PLAIN_GATHER_REPS, warmup=1, batch=1, graph=False)
+                timing += (f"; ms kernel {out['ms']:.4f} (median of "
+                           f"{TIMING_REPS}) / plain {out['plain_ms']:.4f} "
+                           f"(median of {PLAIN_GATHER_REPS}), bound "
+                           f"{out['bound_ms']:.4f} ({out['bound_by']})")
+            print(f"[kernels] B3 {label} check_normal={check_normal}: "
+                  f"queries={q.shape[0]} photons={grid.position.shape[0]} "
+                  f"(valid {int(grid.n_valid)}), visited "
+                  f"{int(visited.sum())}, subsampled "
+                  f"{int((total - visited).clamp_min(0).sum())}; stats "
+                  f"equal, sums within tolerance (max |err| {max_err:.3g}, "
+                  f"max |ref| {scale:.4g}){timing}")
     return out
 
 
@@ -901,7 +1048,7 @@ def vm_kernel_cases(dev) -> dict:
                 out["ms"] = ms
                 out["plain_ms"] = cuda_ms(
                     lambda: vk.merge_vertices_tiled_plain(*args),
-                    reps=PLAIN_VM_REPS, warmup=1, batch=1)
+                    reps=PLAIN_VM_REPS, warmup=1, batch=1, graph=False)
                 timing += (f" / plain {out['plain_ms']:.4f} (median of "
                            f"{PLAIN_VM_REPS})")
         print(f"[kernels] B4 {label}: queries={qtab.shape[0]} (valid "
@@ -1083,7 +1230,7 @@ def bvh_kernel_cases(dev) -> dict:
                     out[k]["ms"] = ms
                     out[k]["plain_ms"] = cuda_ms(
                         lambda: plain(bvh, o, d, tmin, tmax),
-                        reps=PLAIN_BVH_REPS, warmup=1, batch=1)
+                        reps=PLAIN_BVH_REPS, warmup=1, batch=1, graph=False)
                     line += (f" / plain {out[k]['plain_ms']:.4f} (median of "
                              f"{PLAIN_BVH_REPS})")
             lines.append(line)
@@ -1392,7 +1539,8 @@ def profile_iteration(r, tag: str) -> None:
           f"{1.0 - busy_ms / wall_ms:.4f} under the profiler); host ms per "
           "range " + ", ".join(f"{k} {v:.3f}" for k, v in ranges.items()))
     ours = ("closest_hit_tris_kernel", "occluded_tris_kernel",
-            "vm_tiled_kernel", "vm_reduce_kernel", "bvh_kernel")
+            "gather_tiled_kernel", "gather_reduce_kernel", "vm_tiled_kernel",
+            "vm_reduce_kernel", "bvh_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     top += [kv for kv in by_name.items()
             if any(k in kv[0] for k in ours) and kv not in top]
@@ -1420,11 +1568,11 @@ def phase_vcm_main(dev, use_vm: bool) -> dict:
           f"{time.perf_counter() - t0:.3f} s")
     wrappers = [ik.closest_hit_tris, ik.occluded_tris]
     # per iteration: one closest hit per light bounce (L-1) and camera
-    # bounce (L); one any-hit per t=1 splat (L-1), per s=1 sample (L) and
-    # per vertex connection (L x (L-1) paired vertices); one merge per
-    # camera bounce
+    # bounce (L); one any hit per light bounce's t=1 splats (L-1) and one
+    # per camera bounce for its s=1 sample and its L-1 vertex connections
+    # together (L); one merge per camera bounce
     expected = {"closest_hit_tris": iters * (2 * L - 1),
-                "occluded_tris": iters * ((L - 1) + L + L * (L - 1))}
+                "occluded_tris": iters * ((L - 1) + L)}
     if use_vm:
         wrappers.append(vk.merge_vertices_tiled)
         expected["merge_vertices_tiled"] = iters * L
@@ -1536,31 +1684,28 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
     return launches
 
 
-# The parent tree's B4/B5 entry points (their argument types), for a
+# The parent tree's B2-B5 entry points (their argument types), for a
 # same-call comparison with ``--parent``: one launch each, no scratch.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_ENTRY_POINTS = {
-    "merge_vertices_tiled": [_P] * 12 + [_I] + [_P] * 3,
+    "occluded_tris": [_P] * 6 + [_I, _I] + [_P] * 2,
+    "gather_photons_tiled": [_P] * 9 + [_I, _I] + [_P] * 2,
+    "merge_vertices_tiled": [_P] * 10 + [_I] * 3 + [_P] * 4,
     "bvh_closest": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 6,
     "bvh_any": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 2,
 }
 
 
 def parent_library(parent: Path) -> ctypes.CDLL:
-    """The parent tree's kernels, built by this tree's nvcc call into
+    """The parent tree's kernels, built by this tree's nvcc calls into
     ``<parent>/_build_parent``."""
     from oppositerenderer_tpu_torch.accel import cuda_build
     srcs = sorted((parent / "oppositerenderer_tpu_torch" / "csrc").glob(
         "*.cu"))
     out = parent / "_build_parent" / "kernels.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                           str(out), *map(str, srcs)], capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the parent tree:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
+    log = cuda_build.compile_sources(srcs, out)
+    for line in log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"[parent-ab] parent build: {line.strip()}")
     lib = ctypes.CDLL(str(out))
@@ -1570,22 +1715,30 @@ def parent_library(parent: Path) -> ctypes.CDLL:
     return lib
 
 
-def in_turns(old, new) -> tuple[float, float]:
-    """CUDA-event medians of the parent's and this tree's launch in turns
+def in_turns(old, new, graph: bool = True) -> tuple[float, float]:
+    """``cuda_ms`` medians of the parent's and this tree's launches in turns
     (parent, this, this, parent): the mean of each pair."""
-    a, b, c, e = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+    a, b, c, e = (cuda_ms(f, graph=graph) for f in (old, new, new, old))
     return (a + e) / 2, (b + c) / 2
 
 
 def phase_parent_ab(dev, parent: Path) -> dict:
-    """B4 and B5 of the parent tree against this tree's, in one call on one
-    card, on every call of one CornellSmall 512^2 VCM+VM iteration (B4) and
-    of one Atrium 512^2 and Conference 1024^2 PT iteration (B5): each pair
-    of launches timed in turns, the outputs compared (B5 bit for bit, B4
-    within VM_RTOL). Returns, per kernel, the parent's and this tree's ms
-    at the timed shapes and summed over the iteration."""
+    """B2-B5 of the parent tree against this tree's, in one call on one
+    card: B2 over one CornellSmall 512^2 VCM iteration (the parent's
+    launch per light bounce and per technique of each camera bounce, 109,
+    against this tree's 19 on the same rays, booleans equal), B3 on the
+    PPM main shape (within GATHER_RTOL), B4 on every call of one VCM+VM
+    iteration and B5 on every call of one Atrium 512^2 and Conference
+    1024^2 PT iteration: each timed in turns, the outputs compared (B2 and
+    B5 bit for bit, B3 and B4 within their tolerances). Returns, per
+    kernel, the parent's and this tree's ms at the timed shapes and summed
+    over the iteration."""
     from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
     from oppositerenderer_tpu_torch.accel import vm_kernels as vk
+    from oppositerenderer_tpu_torch.accel.intersect import (dense_tables,
+                                                            occluder_mask)
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
     lib = parent_library(parent)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -1595,6 +1748,75 @@ def phase_parent_ab(dev, parent: Path) -> dict:
             raise RuntimeError(f"the parent's {name} failed: cudaError {rc}")
 
     out = {}
+    # B2: the parent's call per technique is one slice of N lanes of a
+    # camera bounce's batch
+    scene, _ = get_scene_by_name(MAIN_SCENE, dev)
+    tri9 = dense_tables(scene)[0]
+    mask = occluder_mask(scene, scene.geometry.tri_mat).contiguous()
+    _, calls = vcm_shadow_calls(dev)
+    n = MAIN_SIZE * MAIN_SIZE
+    pieces = [tuple(a[k:k + n] for a in call[:4])
+              for call in calls for k in range(0, call[0].shape[0], n)]
+    old_occ = [torch.empty(n, dtype=torch.bool, device=dev) for _ in pieces]
+
+    def old_b2():
+        for (o, d, tmin, tmax), res in zip(pieces, old_occ):
+            check(lib.occluded_tris(o.data_ptr(), d.data_ptr(),
+                                    tmin.data_ptr(), tmax.data_ptr(),
+                                    tri9.data_ptr(), mask.data_ptr(), n,
+                                    tri9.shape[1], res.data_ptr(), stream()),
+                  "occluded_tris")
+
+    def new_b2():
+        return [ik.occluded_tris(*call) for call in calls]
+
+    old_b2()
+    if not torch.equal(torch.cat(old_occ), torch.cat(new_b2())):
+        raise AssertionError("B2 over a VCM iteration: this tree's booleans "
+                             "differ from the parent's")
+    t_old, t_new = in_turns(old_b2, new_b2)
+    h_old, h_new = in_turns(old_b2, new_b2, graph=False)
+    out["occluded_tris"] = {f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM": {
+        "parent_launches": len(pieces), "launches": len(calls),
+        "parent_iteration_ms": t_old, "iteration_ms": t_new,
+        "parent_enqueued_ms": h_old, "enqueued_ms": h_new}}
+    print(f"[parent-ab] B2 per {MAIN_SCENE} {MAIN_SIZE}^2 VCM iteration: "
+          f"parent {len(pieces)} launches {t_old:.4f} ms, this tree "
+          f"{len(calls)} launches {t_new:.4f} ms on the device; enqueued "
+          f"from the host as the renderer calls them, parent {h_old:.4f} "
+          f"ms, this tree {h_new:.4f} ms (in turns, medians of "
+          f"{TIMING_REPS}); booleans equal")
+
+    # B3 on the PPM main shape; the parent reads [P, 3] arrays
+    grid, q, qn, r, u, valid = ppm_gather_inputs(dev)
+    starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u, valid)
+    r2 = torch.square(torch.as_tensor(r, dtype=torch.float32, device=dev))
+    ppos, ppow, pdir = (a.contiguous() for a in (
+        grid.position, grid.power, grid.direction))
+    g_old = torch.empty_like(q)
+
+    def old_b3():
+        check(lib.gather_photons_tiled(
+            *(a.data_ptr() for a in (starts, lens, weights, r2, q, qn, ppos,
+                                     ppow, pdir)),
+            starts.shape[0], 1, g_old.data_ptr(), stream()),
+            "gather_photons_tiled")
+
+    args = (starts, lens, weights, rows, r2, q, qn, grid, True)
+    old_b3()
+    g_new = gk.gather_photons_tiled_kernel(*args)
+    scale = float(g_old.abs().max())
+    if not torch.allclose(g_new, g_old, rtol=GATHER_RTOL,
+                          atol=GATHER_ATOL_REL * scale):
+        raise AssertionError("B3 on the PPM main shape: this tree's sums "
+                             "differ from the parent's")
+    t_old, t_new = in_turns(old_b3,
+                            lambda: gk.gather_photons_tiled_kernel(*args))
+    out["gather_photons_tiled"] = {"parent_ms": t_old, "ms": t_new}
+    print(f"[parent-ab] B3 {MAIN_SCENE} {MAIN_SIZE}^2 PPM: parent "
+          f"{t_old:.4f} ms, this tree {t_new:.4f} ms (in turns, medians of "
+          f"{TIMING_REPS})")
+
     cfg, rounds = vcm_merge_inputs(dev)
     acc = out["merge_vertices_tiled"] = {"parent_iteration_ms": 0.0,
                                          "iteration_ms": 0.0}
@@ -1606,13 +1828,15 @@ def phase_parent_ab(dev, parent: Path) -> dict:
         starts, lens, weights, rows, scal, qtab, g = args
         o1 = torch.empty((qtab.shape[0], 3), device=dev)
         o2 = torch.empty_like(o1)
+        part = torch.empty((2, vk.SLOT_GROUPS) + tuple(o1.shape), device=dev)
 
         def old():
             check(lib.merge_vertices_tiled(
                 *(a.data_ptr() for a in (
-                    starts, lens, weights, scal, qtab, g.position, g.wo,
-                    g.throughput, g.dVCM, g.dVM, g.cont, g.depth)),
-                starts.shape[0], o1.data_ptr(), o2.data_ptr(), stream()),
+                    starts, lens, weights, rows, scal, qtab, g.packed,
+                    g.offsets, g.origin, g.cell_size)),
+                g.resolution, starts.shape[0], vk.SLOT_GROUPS,
+                part.data_ptr(), o1.data_ptr(), o2.data_ptr(), stream()),
                 "merge_vertices_tiled")
 
         old()
@@ -1690,7 +1914,7 @@ def timed(tag: str, fn, *args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="an unpacked earlier tree: time its B4/B5 in turns "
+                    help="an unpacked earlier tree: time its B2-B5 in turns "
                          "with this tree's (phase parent-ab)")
     args = ap.parse_args()
     name = phase_device()   # first: no CUDA device, no result

@@ -13,10 +13,15 @@ inclusion probability as a weight, so the estimate stays unbiased.
 power of the photons of its tile's slots: the hand-written kernel of
 ``csrc/gather.cu`` for CUDA tensors (built and loaded by ``cuda_build``),
 ``gather_photons_tiled_plain`` for CPU tensors. The wrapper counts its
-kernel launches in a ``launches`` attribute. The TPU kernel's Mosaic
-layout workarounds (the transposed ``[16, P_pad]`` photon packing with
-its 128-aligned window, the static unroll) are not ported: the kernel
-reads the grid's own ``[P, 3]`` arrays.
+kernel launches in a ``launches`` attribute. The kernel reads the grid's
+photons as 48-byte records (``PhotonGrid.packed``, written by the grid's
+own sort), culls each slot's window by its (y,z) grid row
+(``_tile_tables``' ``rows``) against each query's cells, and splits a
+tile's slots over ``SLOT_GROUPS`` CTAs whose partial sums a second kernel
+adds in group order; the plain version sums every staged pair at once.
+The TPU kernel's Mosaic layout workarounds (the transposed ``[16, P_pad]``
+photon packing with its 128-aligned window, the static unroll) are not
+ported.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
-                          PhotonGrid, ceil_div)
+                          PHOTON_RECORD, PhotonGrid, ceil_div)
 from .cuda_build import launch
 
 TILE = 256          # queries per tile
@@ -33,6 +38,12 @@ ROWS_Y = 8          # (y,z) row slot grid per tile
 ROWS_Z = 8
 ROWS = ROWS_Y * ROWS_Z
 CHUNK = 256         # photons per row slot
+# the kernels' cull box radius r (1 + 2^-10): rounding never drops a cell
+BOX_SLACK = 1.0 + 2.0 ** -10
+# CTAs per tile in B3's kernel, each with ROWS // SLOT_GROUPS slots: a
+# tile's queries can sit in dense cells, and one CTA would walk all of its
+# slots alone (1 to 32 timed on the card: PERF.md)
+SLOT_GROUPS = 8
 
 # [tiles, TILE, ROWS * CHUNK] elements the plain version materialises at once
 PLAIN_ELEMENT_BUDGET = 1 << 23
@@ -66,7 +77,7 @@ def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
     per tile the photons visited and the photons in the (weighted) box
     union, int32 [n_tiles], and each slot's (y,z) grid row as the index of
     its x = 0 cell, y * res + z * res^2, int32 [n_tiles, ROWS] (0 for an
-    empty slot): B4's kernel culls a slot's window by it.
+    empty slot): the B3 and B4 kernels cull a slot's window by it.
     """
     res = grid.resolution
     n = position.shape[0]
@@ -127,18 +138,21 @@ def _tile_tables(grid: PhotonGrid, position: torch.Tensor, radius,
     return start_s, ln_s, weight, visited, total, torch.where(ok, row, 0)
 
 
-def gather_photons_tiled_plain(starts, lens, weights, r2, qpos, qnormal,
-                               ppos, ppow, pdir, check_normal: bool = True):
+def gather_photons_tiled_plain(starts, lens, weights, rows, r2, qpos,
+                               qnormal, grid, check_normal: bool = True):
     """Plain PyTorch version of the kernel's contract. For each tile, the
-    windows ``[start, start + len)`` of its ROWS slots against its TILE
-    queries: d^2 summed per axis (never as q^2 + p^2 - 2 q.p, which cancels
-    catastrophically at scene scale, pallas_gather.py:37-44), the pair
-    kept if d^2 <= r2 and, with ``check_normal``, n.dir <= 0, weighted by
-    the Jensen gaussian times the slot weight; returns sum w * power
-    [N, 3]. Tiles go in chunks that bound the [tiles, TILE, ROWS * CHUNK]
-    intermediates."""
+    windows ``[start, start + len)`` of its ROWS slots over the photons of
+    ``grid`` against its TILE queries: d^2 summed per axis (never as q^2 +
+    p^2 - 2 q.p, which cancels catastrophically at scene scale,
+    pallas_gather.py:37-44), the pair kept if d^2 <= r2 and, with
+    ``check_normal``, n.dir <= 0, weighted by the Jensen gaussian times the
+    slot weight; returns sum w * power [N, 3]. The slots' grid ``rows``
+    only let the kernel cull pairs that fail ``d2 <= r2``: this version
+    tests every staged pair. Tiles go in chunks that bound the [tiles,
+    TILE, ROWS * CHUNK] intermediates."""
     n_tiles = starts.shape[0]
     dev = qpos.device
+    ppos, ppow, pdir = grid.position, grid.power, grid.direction
     out = torch.zeros((n_tiles * TILE, 3), dtype=torch.float32, device=dev)
     if ppos.shape[0] == 0:
         return out
@@ -174,19 +188,52 @@ def gather_photons_tiled_plain(starts, lens, weights, r2, qpos, qnormal,
     return out
 
 
-def _check_gather(starts, lens, weights, r2, qpos, qnormal, ppos, ppow,
-                  pdir):
-    n_tiles, n, n_p = starts.shape[0], qpos.shape[0], ppos.shape[0]
+def culled_windows_plain(grid: PhotonGrid, qpos, r2, starts, lens, rows):
+    """The part of each slot's window that B3's kernel walks for each
+    query, in the kernel's arithmetic: the photons of the query's own x
+    cells in the slot's (y,z) row (the cells of its box on the radius
+    sqrt(r2) * BOX_SLACK), none if its box misses the row. Returns (k0,
+    k1) int64 [n_tiles, TILE, ROWS], grid row indices with k0 <= k1. Every
+    pair of the window left out fails d2 <= r2."""
+    res = grid.resolution
+    n_tiles = starts.shape[0]
+    rc = torch.sqrt(torch.as_tensor(r2, dtype=torch.float32)) * BOX_SLACK
+    inv = 1.0 / grid.cell_size
+    p = (qpos - grid.origin).reshape(n_tiles, TILE, 1, 3)
+    lo = torch.clamp(torch.floor((p - rc) * inv), 0, res - 1).long()
+    hi = torch.clamp(torch.floor((p + rc) * inv), 0, res - 1).long()
+    row = rows.long()[:, None, :]                      # [tiles, 1, ROWS]
+    y, z = (row // res) % res, row // (res * res)
+    st = starts.long()[:, None, :]
+    en = st + lens.long()[:, None, :]
+    in_row = ((lo[..., 1] <= y) & (y <= hi[..., 1]) & (lo[..., 2] <= z)
+              & (z <= hi[..., 2]) & (en > st))
+    offsets = grid.offsets.long()
+    a = torch.maximum(st, offsets[row + lo[..., 0]])
+    b = torch.minimum(en, offsets[row + hi[..., 0] + 1])
+    k0 = torch.where(in_row, a, st)
+    return k0, torch.where(in_row & (a < b), b, k0)
+
+
+def _check_gather(starts, lens, weights, rows, r2, qpos, qnormal, grid):
+    n_tiles, n = starts.shape[0], qpos.shape[0]
+    packed = getattr(grid, "packed", None)
+    if packed is None:
+        raise ValueError("the grid has no packed photon records")
     for name, a, shape, dtype in (
             ("starts", starts, (n_tiles, ROWS), torch.int32),
             ("lens", lens, (n_tiles, ROWS), torch.int32),
             ("weights", weights, (n_tiles, ROWS), torch.float32),
+            ("rows", rows, (n_tiles, ROWS), torch.int32),
             ("r2", r2, (), torch.float32),
             ("qpos", qpos, (n_tiles * TILE, 3), torch.float32),
             ("qnormal", qnormal, (n, 3), torch.float32),
-            ("ppos", ppos, (n_p, 3), torch.float32),
-            ("ppow", ppow, (n_p, 3), torch.float32),
-            ("pdir", pdir, (n_p, 3), torch.float32)):
+            ("packed", packed, (grid.position.shape[0], PHOTON_RECORD),
+             torch.float32),
+            ("offsets", grid.offsets, (grid.resolution ** 3 + 1,),
+             torch.int32),
+            ("origin", grid.origin, (3,), torch.float32),
+            ("cell_size", grid.cell_size, (), torch.float32)):
         if a.device != qpos.device:
             raise ValueError(f"{name} is on {a.device}, qpos on "
                              f"{qpos.device}")
@@ -197,21 +244,26 @@ def _check_gather(starts, lens, weights, r2, qpos, qnormal, ppos, ppow,
                              f"{tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned")
 
 
-def gather_photons_tiled_kernel(starts, lens, weights, r2, qpos, qnormal,
-                                ppos, ppow, pdir, check_normal: bool = True):
+def gather_photons_tiled_kernel(starts, lens, weights, rows, r2, qpos,
+                                qnormal, grid, check_normal: bool = True):
     """The kernel on CUDA tensors, with the plain version's contract."""
-    _check_gather(starts, lens, weights, r2, qpos, qnormal, ppos, ppow, pdir)
+    _check_gather(starts, lens, weights, rows, r2, qpos, qnormal, grid)
     out = torch.empty_like(qpos)
     if starts.shape[0] == 0:
         return out
+    part = torch.empty((SLOT_GROUPS,) + tuple(out.shape),
+                       dtype=torch.float32, device=qpos.device)
     with torch.cuda.device(qpos.device):
-        launch("gather_photons_tiled", starts.data_ptr(), lens.data_ptr(),
-               weights.data_ptr(), r2.data_ptr(), qpos.data_ptr(),
-               qnormal.data_ptr(), ppos.data_ptr(), ppow.data_ptr(),
-               pdir.data_ptr(), starts.shape[0], int(bool(check_normal)),
-               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        launch("gather_photons_tiled", *(a.data_ptr() for a in (
+                   starts, lens, weights, rows, r2, qpos, qnormal,
+                   grid.packed, grid.offsets, grid.origin, grid.cell_size)),
+               grid.resolution, starts.shape[0], SLOT_GROUPS,
+               int(bool(check_normal)), part.data_ptr(), out.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
     gather_photons_tiled.launches += 1
     return out
 
@@ -230,11 +282,11 @@ def gather_photons_tiled(grid: PhotonGrid, position: torch.Tensor,
     n = position.shape[0]
     if n % TILE:
         raise ValueError(f"{n} queries are not a multiple of {TILE}")
-    starts, lens, weights, visited, total, _ = _tile_tables(
+    starts, lens, weights, visited, total, rows = _tile_tables(
         grid, position, radius, u_rows, valid=valid)
     r = torch.as_tensor(radius, dtype=torch.float32, device=position.device)
-    args = (starts, lens, weights, torch.square(r), position, normal,
-            grid.position, grid.power, grid.direction, check_normal)
+    args = (starts, lens, weights, rows, torch.square(r), position, normal,
+            grid, check_normal)
     if position.device.type == "cpu":
         accum = gather_photons_tiled_plain(*args)
     else:

@@ -4,8 +4,9 @@ The counterpart of ``oppositerenderer_tpu/accel/intersect.py``. Scenes
 with a BVH (above ``accel.bvh.BVH_AUTO_THRESHOLD`` triangles) walk it with
 ``bvh_kernels.traverse``/``traverse_any`` (kernel B5); the others test
 every ray against every triangle with ``intersect_kernels.closest_hit_tris``
-/ ``occluded_tris`` (kernels B1/B2; the plain version's Moller-Trumbore
-takes the place of the JAX package's ``_tri_hits``). Each wrapper
+/ ``occluded_tris`` (kernels B1/B2, on the tables of :func:`dense_tables`;
+the plain version's Moller-Trumbore takes the place of the JAX package's
+``_tri_hits``). Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
 tensors. Analytic spheres are tested in torch either way, and the
 winner's attributes are interpolated in torch. One kernel launch takes
@@ -24,7 +25,7 @@ from ..core.math import Tensor, cross, dot, normalize
 from ..scene.types import EMITTER, Scene
 from .bvh_kernels import traverse, traverse_any
 from .intersect_kernels import (BIG, closest_hit_tris, occluded_tris,
-                                tri9_from_geometry)
+                                occluder_records, tri9_from_geometry)
 
 
 @dataclasses.dataclass
@@ -119,6 +120,21 @@ def occluder_mask(scene: Scene, prim_mat: Tensor) -> Tensor:
     return scene.materials.kind[prim_mat.long()] != EMITTER
 
 
+def dense_tables(scene: Scene) -> tuple[Tensor, Tensor]:
+    """The dense route's triangle tables: B1's ``tri9`` [9, T] and B2's
+    occluder records [T_occ, 12] (the triangles that are no emitter). Built
+    once per scene, and again only if its geometry or materials object is
+    replaced."""
+    g, m = scene.geometry, scene.materials
+    cache = scene.dense_cache
+    if cache is None or cache[0] is not g or cache[1] is not m:
+        tri9 = tri9_from_geometry(g)
+        cache = (g, m, tri9,
+                 occluder_records(tri9, occluder_mask(scene, g.tri_mat)))
+        scene.dense_cache = cache
+    return cache[2], cache[3]
+
+
 def intersect(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
               tmax: Tensor, chunk_size: int | None = None) -> Hit:
     """Closest hit for rays [N,3] against the whole scene: through its BVH
@@ -134,7 +150,7 @@ def intersect(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
                              bu, bv)
     t, idx, bu, bv = closest_hit_tris(
         o.contiguous(), d.contiguous(), tmin.contiguous(),
-        tmax.contiguous(), tri9_from_geometry(g), chunk_size)
+        tmax.contiguous(), dense_tables(scene)[0], chunk_size)
     best_tri = torch.clamp(idx, 0, max(g.n_triangles - 1, 0)).long()
     t_best_tri = torch.where(idx >= 0, t, BIG)
     return _finalize_hit(scene, o, d, tmin, tmax, t_best_tri, best_tri,
@@ -152,8 +168,7 @@ def occluded(scene: Scene, o: Tensor, d: Tensor, tmin: Tensor,
     else:
         occ = occluded_tris(o.contiguous(), d.contiguous(),
                             tmin.contiguous(), tmax.contiguous(),
-                            tri9_from_geometry(g),
-                            occluder_mask(scene, g.tri_mat), chunk_size)
+                            dense_tables(scene)[1], chunk_size)
     if g.n_spheres > 0:
         _, ok_sph = _sphere_hits(o, d, g.sph_center, g.sph_radius,
                                  tmin, tmax)

@@ -1,13 +1,19 @@
 """Dense ray-triangle kernels: the counterpart of
 ``oppositerenderer_tpu/accel/pallas_intersect_t.py``.
 
-``closest_hit_tris`` and ``occluded_tris`` keep the JAX functions' public
-contract and layout (``tri9`` is ``[9, T]``: rows v0, e1, e2). For CUDA
-tensors they launch the hand-written kernels of ``csrc/intersect.cu``
-(built and loaded by ``cuda_build``; without ``nvcc`` a CUDA call
-raises). For CPU tensors they run the plain PyTorch versions of the same
-function, ``closest_hit_tris_plain`` and ``occluded_tris_plain``. Each
-wrapper counts its kernel launches in a ``launches`` attribute.
+``closest_hit_tris`` keeps the JAX function's public contract and
+layout (``tri9`` is ``[9, T]``: rows v0, e1, e2). ``occluded_tris`` takes
+the occluder table of :func:`occluder_records` instead of ``tri9`` and an
+occluder mask: only the triangles whose flag is set, each 12 floats (v0,
+e1, e2, each padded to 16 bytes). An any-hit answer is a boolean, so
+testing the occluders alone, in any order, answers as testing every
+triangle with its flag. ``accel/intersect.dense_tables`` builds both
+tables once per scene. For CUDA tensors the wrappers launch the
+hand-written kernels of ``csrc/intersect.cu`` (built and loaded by
+``cuda_build``; without ``nvcc`` a CUDA call raises). For CPU tensors
+they run the plain PyTorch versions of the same function,
+``closest_hit_tris_plain`` and ``occluded_tris_plain``. Each wrapper
+counts its kernel launches in a ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ BIG = 1e30
 
 # rays x triangles elements the plain versions materialise at once
 CHUNK_ELEMENT_BUDGET = 1 << 25
+OCC_RECORD = 12     # floats per occluder record: v0, e1, e2, each padded
+# the [9, T] rows of an occluder table's columns
+_OCC_TRI9_COLS = (0, 1, 2, 4, 5, 6, 8, 9, 10)
 
 
 def _auto_chunk(n_prims: int) -> int:
@@ -26,11 +35,11 @@ def _auto_chunk(n_prims: int) -> int:
     return int(min(16384, max(1024, CHUNK_ELEMENT_BUDGET // max(n_prims, 1))))
 
 
-def _check_rays(o, d, tmin, tmax, tri9):
+def _check_rays(o, d, tmin, tmax, table_name, table, table_shape):
     n = o.shape[0]
     for name, a, shape in (("o", o, (n, 3)), ("d", d, (n, 3)),
                            ("tmin", tmin, (n,)), ("tmax", tmax, (n,)),
-                           ("tri9", tri9, (9, tri9.shape[-1]))):
+                           (table_name, table, table_shape)):
         if a.device != o.device:
             raise ValueError(f"{name} is on {a.device}, o on {o.device}")
         if a.dtype != torch.float32:
@@ -110,7 +119,7 @@ def closest_hit_tris(o, d, tmin, tmax, tri9, chunk_size=None):
     version (chunked by ``chunk_size``) for CPU tensors."""
     if o.device.type == "cpu":
         return closest_hit_tris_plain(o, d, tmin, tmax, tri9, chunk_size)
-    _check_rays(o, d, tmin, tmax, tri9)
+    _check_rays(o, d, tmin, tmax, "tri9", tri9, (9, tri9.shape[-1]))
     n, n_tris = o.shape[0], tri9.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     idx = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -134,46 +143,53 @@ closest_hit_tris.launches = 0
 # any hit (B2)
 # ---------------------------------------------------------------------------
 
-def occluded_tris_plain(o, d, tmin, tmax, tri9, occluder_mask,
-                        chunk_size=None):
-    """Plain PyTorch any hit: True where some triangle with its occluder
-    flag set is hit in (tmin, tmax)."""
+def occluder_records(tri9: torch.Tensor, occluder_mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """[T_occ, OCC_RECORD] float32: the triangles of ``tri9`` [9, T] whose
+    ``occluder_mask`` [T] is set, in index order, each as (v0, 0), (e1, 0),
+    (e2, 0): three 16-byte groups, the layout in which B2's kernel stages
+    a triangle with three float4 loads."""
+    occ = torch.zeros((tri9.shape[1], OCC_RECORD), dtype=torch.float32,
+                      device=tri9.device)
+    occ[:, _OCC_TRI9_COLS] = tri9.T
+    return occ[occluder_mask].contiguous()
+
+
+def occluded_tris_plain(o, d, tmin, tmax, occ, chunk_size=None):
+    """Plain PyTorch any hit: True where some triangle of the occluder
+    table ``occ`` [T_occ, OCC_RECORD] is hit in (tmin, tmax)."""
     n = o.shape[0]
-    if tri9.shape[1] == 0:
+    if occ.shape[0] == 0:
         return torch.zeros(n, dtype=torch.bool, device=o.device)
+    tri9 = occ[:, _OCC_TRI9_COLS].T.contiguous()
     chunk = chunk_size or _auto_chunk(tri9.shape[1])
     parts = []
     for s in range(0, n, chunk):
         *_, valid = _mt_terms(o[s:s + chunk], d[s:s + chunk],
                               tmin[s:s + chunk], tmax[s:s + chunk], tri9)
-        parts.append(torch.any(valid & occluder_mask[None, :], dim=1))
+        parts.append(torch.any(valid, dim=1))
     return torch.cat(parts)
 
 
-def occluded_tris(o, d, tmin, tmax, tri9, occluder_mask, chunk_size=None):
-    """Any-hit shadow test [N] bool against the triangles whose
-    ``occluder_mask`` [T] bool is set. The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def occluded_tris(o, d, tmin, tmax, occ, chunk_size=None):
+    """Any-hit shadow test [N] bool against the occluder table ``occ``
+    [T_occ, OCC_RECORD] (:func:`occluder_records`). The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if o.device.type == "cpu":
-        return occluded_tris_plain(o, d, tmin, tmax, tri9, occluder_mask,
-                                   chunk_size)
-    _check_rays(o, d, tmin, tmax, tri9)
-    n, n_tris = o.shape[0], tri9.shape[1]
-    if (occluder_mask.device != o.device or occluder_mask.dtype != torch.bool
-            or tuple(occluder_mask.shape) != (n_tris,)
-            or not occluder_mask.is_contiguous()):
-        raise ValueError("occluder_mask must be a contiguous bool [T] tensor "
-                         "on the rays' device")
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
+        return occluded_tris_plain(o, d, tmin, tmax, occ, chunk_size)
+    _check_rays(o, d, tmin, tmax, "occ", occ, (occ.shape[0], OCC_RECORD))
+    if occ.data_ptr() % 16:
+        raise ValueError("occ must be 16-byte aligned")
+    out = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    if o.shape[0] == 0:
+        return out
     with torch.cuda.device(o.device):
         launch("occluded_tris", o.data_ptr(), d.data_ptr(),
-               tmin.data_ptr(), tmax.data_ptr(), tri9.data_ptr(),
-               occluder_mask.data_ptr(), n, n_tris, occ.data_ptr(),
+               tmin.data_ptr(), tmax.data_ptr(), occ.data_ptr(), o.shape[0],
+               occ.shape[0], out.data_ptr(),
                torch.cuda.current_stream().cuda_stream)
     occluded_tris.launches += 1
-    return occ
+    return out
 
 
 occluded_tris.launches = 0

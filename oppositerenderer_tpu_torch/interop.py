@@ -22,7 +22,7 @@ from .core.rng import Key
 from .devices import resolve_device
 from .integrators.vcm import LightVertexStore, VertexGrid
 from .lights import LIGHT_FIELDS, LightTable
-from .photon_map import PhotonBatch, PhotonGrid
+from .photon_map import PhotonBatch, PhotonGrid, pack_photon_records
 from .scene.types import MATERIAL_FIELDS, Geometry, MaterialTable, Scene
 
 GEOMETRY_FIELDS = tuple(Geometry.__dataclass_fields__)
@@ -112,12 +112,24 @@ def photon_batch_from_numpy(leaves: Mapping,
     return PhotonBatch(**_tensors(leaves, PHOTON_BATCH_FIELDS, device))
 
 
+def _x_cells(offsets: torch.Tensor, n: int, res: int) -> torch.Tensor:
+    """The x index of the grid cell of each of a sorted grid's ``n``
+    entries (0 past the last cell), from its prefix ``offsets``."""
+    cell = torch.searchsorted(offsets, torch.arange(
+        n, dtype=offsets.dtype, device=offsets.device), right=True) - 1
+    return cell % res
+
+
 def photon_grid_from_numpy(leaves: Mapping,
                            device: torch.device | str | None = None
                            ) -> PhotonGrid:
-    """``leaves`` maps a JAX ``PhotonGrid``'s arrays and ``resolution``."""
-    return PhotonGrid(**_tensors(leaves, PHOTON_GRID_ARRAYS, device),
-                      resolution=int(leaves["resolution"]))
+    """``leaves`` maps a JAX ``PhotonGrid``'s arrays and ``resolution``;
+    the port's packed photon records are built from them."""
+    arrays = _tensors(leaves, PHOTON_GRID_ARRAYS, device)
+    res = int(leaves["resolution"])
+    x = _x_cells(arrays["offsets"], arrays["position"].shape[0], res)
+    return PhotonGrid(**arrays, resolution=res, packed=pack_photon_records(
+        arrays["position"], arrays["direction"], arrays["power"], x))
 
 
 def light_vertex_store_from_numpy(leaves: Mapping,
@@ -134,9 +146,7 @@ def vertex_grid_from_numpy(leaves: Mapping,
     the port's packed vertex records are built from them."""
     arrays = _tensors(leaves, VERTEX_GRID_ARRAYS, device)
     res = int(leaves["resolution"])
-    offsets = arrays["offsets"]
-    cell = torch.searchsorted(offsets, torch.arange(
-        arrays["position"].shape[0], dtype=offsets.dtype,
-        device=offsets.device), right=True) - 1
     return VertexGrid(**arrays, resolution=res, packed=pack_vertex_records(
-        **{f: arrays[f] for f in VERTEX_FIELDS}, cell=cell, resolution=res))
+        **{f: arrays[f] for f in VERTEX_FIELDS},
+        cell=_x_cells(arrays["offsets"], arrays["position"].shape[0], res),
+        resolution=res))

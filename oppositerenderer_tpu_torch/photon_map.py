@@ -48,6 +48,30 @@ class PhotonGrid:
     cell_size: Tensor  # [] scalar
     resolution: int
     n_valid: Tensor    # [] int32
+    # [P,12] the photons as 48-byte records for B3's kernel
+    # (pack_photon_records); not a field of the JAX package's
+    packed: Tensor
+
+
+PHOTON_RECORD = 12   # floats per packed photon record
+
+
+def pack_photon_records(position: Tensor, direction: Tensor, power: Tensor,
+                        x_cell: Tensor) -> Tensor:
+    """[P, PHOTON_RECORD] float32: per photon (position, x), (direction,
+    0), (power, 0), with x its grid cell's x index (exact in float32):
+    three 16-byte groups, the layout in which B3's kernel stages a slot
+    with one 16-byte copy per group. (Assigned column by column: on the
+    card, torch.cat of such narrow columns is slower.)"""
+    p = torch.empty((position.shape[0], PHOTON_RECORD), dtype=torch.float32,
+                    device=position.device)
+    p[:, 0:3] = position
+    p[:, 3] = x_cell
+    p[:, 4:7] = direction
+    p[:, 8:11] = power
+    p[:, 7] = 0.0
+    p[:, 11] = 0.0
+    return p
 
 
 def cell_coords(p: Tensor, origin: Tensor, cell_size: Tensor,
@@ -98,7 +122,9 @@ def build_photon_grid(photons: PhotonBatch, resolution: int,
 
     ``min_cell_size`` floors the cell size: pass
     :func:`min_cell_size_for_window` of the gather radius so the gather's
-    fixed cell window is exact.
+    fixed cell window is exact. The sort's permutation moves the photons
+    once, as packed records; the grid's position, power and direction are
+    views of their columns.
     """
     origin, cell_size = photon_grid_geometry(photons, resolution,
                                              min_cell_size)
@@ -112,12 +138,14 @@ def build_photon_grid(photons: PhotonBatch, resolution: int,
     offsets = torch.searchsorted(
         cells_sorted, torch.arange(n_cells + 1, dtype=cells_sorted.dtype,
                                    device=p.device))
+    packed = pack_photon_records(p, photons.direction, photons.power,
+                                 cells % resolution)[order]
     return PhotonGrid(
-        position=p[order], power=photons.power[order],
-        direction=photons.direction[order],
+        position=packed[:, 0:3], power=packed[:, 8:11],
+        direction=packed[:, 4:7],
         offsets=offsets.to(torch.int32), origin=origin, cell_size=cell_size,
         resolution=resolution,
-        n_valid=torch.sum(photons.valid).to(torch.int32))
+        n_valid=torch.sum(photons.valid).to(torch.int32), packed=packed)
 
 
 # Jensen gaussian filter constants (IndirectRadianceEstimation.cu:60-67),

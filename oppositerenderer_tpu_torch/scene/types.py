@@ -10,6 +10,7 @@ medium belongs to a later slice and stays ``None`` here.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -117,6 +118,10 @@ class Scene:
     bvh: object = None                 # accel.bvh.Bvh (big scenes)
     medium: object = None              # media slice
     name: str = "scene"
+    # the dense route's triangle tables (accel.intersect.dense_tables), set
+    # per instance at first use; not a field, so dataclasses.replace does
+    # not carry it to a scene with other geometry
+    dense_cache: ClassVar[tuple | None] = None
 
     @property
     def device(self) -> torch.device:

@@ -194,31 +194,97 @@ def test_cpu_call_runs_the_plain_version_without_a_launch():
     grid = port_grid(jgrid)
     q, n = torch.as_tensor(qpos), torch.as_tensor(qn)
     u = torch.as_tensor(u_rows_for(3, 1))
-    starts, lens, weights, *_ = gk._tile_tables(grid, q, r, u)
+    starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u)
     before = gk.gather_photons_tiled.launches
     got, _ = gk.gather_photons_tiled(grid, q, n, torch.tensor(r), u_rows=u)
     assert gk.gather_photons_tiled.launches == before
     assert torch.equal(got, gk.gather_photons_tiled_plain(
-        starts, lens, weights, torch.tensor(r * r, dtype=torch.float32), q,
-        n, grid.position, grid.power, grid.direction))
+        starts, lens, weights, rows,
+        torch.tensor(r * r, dtype=torch.float32), q, n, grid))
     with pytest.raises(ValueError, match="multiple"):
         gk.gather_photons_tiled(grid, q[:100], n[:100], r, u_rows=u)
 
 
+def _cull_case(case):
+    """(grid, queries, radius) of the cull test: the synthetic and the
+    clustered photons of make_case with their queries, or photons and
+    queries on a lattice of the grid's cell faces (every 0.1 along each
+    axis, the cell size) with the radius equal to the cell size, so that
+    pairs lie exactly one radius apart."""
+    if case != "cell faces":
+        jgrid, qpos, _, r = make_case(cluster=case == "clustered",
+                                      radius=0.2 if case == "clustered"
+                                      else 0.12)
+        return port_grid(jgrid), torch.as_tensor(qpos), r
+    rng = np.random.default_rng(2)
+    step = np.float32(0.1)
+    pos = np.concatenate([rng.integers(0, 17, (4096, 3)) * step,
+                          rng.uniform(0.0, 1.6, (2048, 3))]).astype(
+                              np.float32)
+    grid = pm.build_photon_grid(pm.PhotonBatch(
+        position=torch.as_tensor(pos),
+        power=torch.as_tensor(rng.uniform(size=pos.shape).astype(
+            np.float32)),
+        direction=torch.as_tensor(_unit(rng, pos.shape[0])),
+        valid=torch.ones(pos.shape[0], dtype=torch.bool)), 16)
+    cells = rng.integers(2, 15, (2 * gk.TILE, 3))
+    cells[gk.TILE:] = cells[gk.TILE:] // 4 + 6       # one dense tile
+    qpos = torch.as_tensor((cells * step).astype(np.float32))
+    return grid, qpos, float(grid.cell_size)
+
+
+@pytest.mark.parametrize("case", ["synthetic", "clustered", "cell faces"])
+def test_cell_cull_keeps_every_pair_within_the_radius(case):
+    """B3's per-query x-cell cull, in its plain version: every staged pair
+    with d2 <= r2 (per axis, as the kernel) lies in the part of its slot's
+    window that the query walks, and the cull leaves pairs out."""
+    grid, q, r = _cull_case(case)
+    n_tiles = q.shape[0] // gk.TILE
+    u = torch.as_tensor(u_rows_for(n_tiles, 3))
+    starts, lens, _, _, _, rows = gk._tile_tables(grid, q, r, u)
+    r2 = torch.square(torch.tensor(r, dtype=torch.float32))
+    k0, k1 = gk.culled_windows_plain(grid, q, r2, starts, lens, rows)
+    j = starts.long()[:, None, :, None] + torch.arange(gk.CHUNK)
+    staged = (torch.arange(gk.CHUNK) < lens[:, None, :, None]).expand(
+        -1, gk.TILE, -1, -1)
+    p = grid.position[j.clamp_max(grid.position.shape[0] - 1)]
+    qq = q.reshape(n_tiles, gk.TILE, 1, 1, 3)
+    dx, dy, dz = (qq[..., a] - p[..., a] for a in range(3))
+    keep = staged & (dx * dx + dy * dy + dz * dz <= r2)
+    walked = (j >= k0[..., None]) & (j < k1[..., None])
+    assert bool(keep.any())
+    assert not bool((keep & ~walked).any())
+    assert int(walked.sum()) < int(staged.sum())
+    assert bool((k0 <= k1).all())
+
+
 def test_kernel_wrapper_checks_its_inputs():
+    """The kernel's wrapper refuses what the kernel cannot read, the grid's
+    packed records among them: missing, cut, strided or misaligned."""
+    import dataclasses
     jgrid, qpos, qn, r = make_case(n_tiles=1)
     grid = port_grid(jgrid)
     q, n = torch.as_tensor(qpos), torch.as_tensor(qn)
     u = torch.as_tensor(u_rows_for(1, None))
-    starts, lens, weights, *_ = gk._tile_tables(grid, q, r, u)
+    starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u)
     r2 = torch.tensor(r * r, dtype=torch.float32)
-    ok = [starts, lens, weights, r2, q, n, grid.position, grid.power,
-          grid.direction]
+    ok = [starts, lens, weights, rows, r2, q, n, grid]
+    packed = grid.packed
+    shifted = torch.zeros(packed.numel() + 1)[1:].reshape(packed.shape)
     for i, bad, match in ((0, starts.long(), "int32"),
-                          (3, r2.reshape(1), "shape"),
-                          (4, q.double(), "float32"),
-                          (6, grid.position.T.contiguous().T,
-                           "contiguous")):
+                          (3, rows[:, :8].contiguous(), "shape"),
+                          (4, r2.reshape(1), "shape"),
+                          (5, q.double(), "float32"),
+                          (6, n.T.contiguous().T, "contiguous"),
+                          (7, dataclasses.replace(grid, packed=None),
+                           "packed"),
+                          (7, dataclasses.replace(grid, packed=packed[:, :8]),
+                           "shape"),
+                          (7, dataclasses.replace(
+                              grid, packed=packed.T.contiguous().T),
+                           "contiguous"),
+                          (7, dataclasses.replace(grid, packed=shifted),
+                           "aligned")):
         args = list(ok)
         args[i] = bad
         with pytest.raises(ValueError, match=match):

@@ -20,9 +20,10 @@ import torch
 from oppositerenderer_tpu.accel import pallas_intersect_t as jpk
 from oppositerenderer_tpu.scene import get_scene_by_name as jax_scene
 from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-from oppositerenderer_tpu_torch.accel.intersect import (occluder_mask,
+from oppositerenderer_tpu_torch.accel.intersect import (dense_tables,
+                                                        occluder_mask,
                                                         intersect, occluded)
-from oppositerenderer_tpu_torch.scene import get_scene_by_name
+from oppositerenderer_tpu_torch.scene import SCENE_NAMES, get_scene_by_name
 
 # the JAX package re-exports intersect() under the module's name
 jint = importlib.import_module("oppositerenderer_tpu.accel.intersect")
@@ -30,15 +31,26 @@ jint = importlib.import_module("oppositerenderer_tpu.accel.intersect")
 torch.set_num_threads(2)
 
 
-def random_rays(n, seed, tmax_scale=None):
+def random_rays(n, seed, tmax_scale=None, lo=0.2, hi=2.3):
     rng = np.random.default_rng(seed)
-    o = rng.uniform(0.2, 2.3, (n, 3)).astype(np.float32)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmin = np.full(n, 1e-4, np.float32)
     tmax = (np.full(n, 1e6, np.float32) if tmax_scale is None else
             rng.uniform(0.05, tmax_scale, n).astype(np.float32))
     return o, d, tmin, tmax
+
+
+def scene_rays(scene, n, seed):
+    """Random rays inside the scene's box, a tenth of its extent to its
+    extent long: CornellSmall's box is the default one of random_rays."""
+    lo = scene.aabb_min.numpy()
+    hi = scene.aabb_max.numpy()
+    ext = float(np.max(hi - lo))
+    o, d, tmin, tmax = random_rays(n, seed, tmax_scale=1.0,
+                                   lo=lo + 0.01 * ext, hi=hi - 0.01 * ext)
+    return o, d, tmin, tmax * np.float32(ext)
 
 
 def both(*arrays):
@@ -74,16 +86,47 @@ def test_intersect_matches_jax(name, backend):
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
-@pytest.mark.parametrize("name", ["CornellSmall", "CornellSmallLargeSphere"])
+@pytest.mark.parametrize("name", SCENE_NAMES)
 def test_occluded_matches_jax(name, backend):
+    """The scene's cached occluder table (kernel B2's input) against JAX's
+    any hit over every triangle with its flag, on the eight Cornell
+    scenes; and the plain any hit on the table against the flag-mask
+    version on the same rays."""
     jint.set_backend(backend)
     jscene, _ = jax_scene(name)
     tscene, _ = get_scene_by_name(name, "cpu")
-    ja, ta = both(*random_rays(2000, seed=2, tmax_scale=2.0))
+    rays = scene_rays(tscene, 2000, seed=2)
+    ja, ta = both(*rays)
     want = np.asarray(jint.occluded(jscene, *ja))
     got = occluded(tscene, *ta).numpy()
     assert 0.1 < want.mean() < 0.9
     np.testing.assert_array_equal(got, want)
+    tri9, occ = dense_tables(tscene)
+    assert dense_tables(tscene)[1] is occ          # built once per scene
+    g = tscene.geometry
+    mask = occluder_mask(tscene, g.tri_mat)
+    assert occ.shape == (int(mask.sum()), ik.OCC_RECORD)
+    *_, valid = ik._mt_terms(*ta, tri9)
+    assert torch.equal(ik.occluded_tris_plain(*ta, occ),
+                       torch.any(valid & mask[None, :], dim=1))
+
+
+def test_occluder_table_is_rebuilt_for_new_geometry():
+    """dataclasses.replace does not carry the cached tables to a scene
+    with other geometry; the table holds the non-emitters' triangles."""
+    import dataclasses
+    tscene, _ = get_scene_by_name("Cornell", "cpu")
+    tri9, occ = dense_tables(tscene)
+    g = tscene.geometry
+    mask = occluder_mask(tscene, g.tri_mat)
+    assert 0 < occ.shape[0] < g.n_triangles
+    np.testing.assert_array_equal(
+        occ.numpy()[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]], tri9.T[mask].numpy())
+    assert not occ[:, [3, 7, 11]].any()
+    moved = dataclasses.replace(g, tri_v0=g.tri_v0 + 1.0)
+    other = dataclasses.replace(tscene, geometry=moved)
+    assert torch.equal(dense_tables(other)[1][:, :3], occ[:, :3] + 1.0)
+    assert dense_tables(tscene)[1] is occ
 
 
 @pytest.mark.parametrize("n", [131, 2000])
@@ -114,23 +157,22 @@ def test_plain_kernels_match_pallas_interpret(n):
     want = np.asarray(jpk.occluded_tris(*ja, jtri9,
                                         jnp.asarray(occ_mask.numpy()),
                                         interpret=True))
-    got = ik.occluded_tris_plain(*ta, tri9, occ_mask).numpy()
+    got = ik.occluded_tris_plain(*ta, ik.occluder_records(
+        tri9, occ_mask)).numpy()
     np.testing.assert_array_equal(got, want)
     assert not got[::10].any()
 
 
 def test_chunking_does_not_change_results():
     tscene, _ = get_scene_by_name("CornellSmall", "cpu")
-    tri9 = ik.tri9_from_geometry(tscene.geometry)
-    mask = occluder_mask(tscene, tscene.geometry.tri_mat)
+    tri9, occ = dense_tables(tscene)
     ta = [torch.as_tensor(a) for a in random_rays(1000, seed=4, tmax_scale=2)]
     whole = ik.closest_hit_tris_plain(*ta, tri9)
     chunked = ik.closest_hit_tris_plain(*ta, tri9, chunk_size=97)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
-    assert torch.equal(ik.occluded_tris_plain(*ta, tri9, mask),
-                       ik.occluded_tris_plain(*ta, tri9, mask,
-                                              chunk_size=97))
+    assert torch.equal(ik.occluded_tris_plain(*ta, occ),
+                       ik.occluded_tris_plain(*ta, occ, chunk_size=97))
 
 
 def test_cpu_calls_run_the_plain_version_and_count_no_launch():

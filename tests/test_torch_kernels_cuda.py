@@ -9,11 +9,11 @@ Run them on such a machine with
 not need.)
 The library is built with --fmad=false, so the intersection kernels (B1,
 B2) and the BVH traversal (B5) and their plain versions must agree bit
-for bit, B5 also on inputs whose lanes are all dead or all live, and its
-live-lane compaction must find the lanes torch.nonzero finds. The gather kernel (B3) and
-the vertex-merge kernel (B4) sum the same terms as their plain versions in
-another order: rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and
-tables.
+for bit, B2 and B5 also on inputs whose lanes are all dead or all live,
+and B5's live-lane compaction must find the lanes torch.nonzero finds.
+The gather kernel (B3) and the vertex-merge kernel (B4) sum the same terms
+as their plain versions in another order (a tile's slots in groups):
+rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and tables.
 """
 import sys
 from pathlib import Path
@@ -29,7 +29,7 @@ from oppositerenderer_tpu_torch.accel import gather_kernels as gk  # noqa
 from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
 from oppositerenderer_tpu_torch.accel import vm_kernels as vk  # noqa: E402
 from oppositerenderer_tpu_torch.accel.intersect import \
-    occluder_mask  # noqa: E402
+    dense_tables  # noqa: E402
 from oppositerenderer_tpu_torch.config import (RenderConfig,  # noqa: E402
                                                RenderMethod)
 from oppositerenderer_tpu_torch.renderer import Renderer  # noqa: E402
@@ -62,9 +62,7 @@ def rays(n, seed, dev):
 @pytest.mark.parametrize("name", ["CornellSmall", "CornellSmallLargeSphere"])
 def test_kernels_equal_plain_versions(cuda, name, n):
     scene, _ = get_scene_by_name(name, cuda)
-    g = scene.geometry
-    tri9 = ik.tri9_from_geometry(g)
-    mask = occluder_mask(scene, g.tri_mat)
+    tri9, occ = dense_tables(scene)
     args = rays(n, n, cuda)
     before = ik.closest_hit_tris.launches
     got = ik.closest_hit_tris(*args, tri9)
@@ -73,18 +71,52 @@ def test_kernels_equal_plain_versions(cuda, name, n):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not bool((got[1][::11] >= 0).any())
-    assert torch.equal(ik.occluded_tris(*args, tri9, mask),
-                       ik.occluded_tris_plain(*args, tri9, mask))
+    before = ik.occluded_tris.launches
+    assert torch.equal(ik.occluded_tris(*args, occ),
+                       ik.occluded_tris_plain(*args, occ))
+    assert ik.occluded_tris.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all dead", "all live"])
+@pytest.mark.parametrize("T", [0, 1, 32, 4096])
+def test_occluded_kernel_on_dead_live_and_mixed_lanes(cuda, T, kind):
+    """B2 bit for bit against its plain version on occluder tables of 0 to
+    4096 triangles (more than one staged chunk), with every lane dead,
+    every lane live, or a mix."""
+    rng = np.random.default_rng(T)
+    tri9 = torch.as_tensor(np.concatenate([
+        rng.uniform(0.0, 10.0, (T, 3)).T, rng.normal(0.0, 0.5, (T, 3)).T,
+        rng.normal(0.0, 0.5, (T, 3)).T]).astype(np.float32), device=cuda)
+    occ = ik.occluder_records(tri9, torch.ones(T, dtype=torch.bool,
+                                               device=cuda))
+    o, d, tmin, tmax = chip_smoke._rays(70001, T + 1, [0.0] * 3, [10.0] * 3,
+                                        cuda)
+    if kind != "mixed":
+        o, d, tmin, tmax = chip_smoke.dead_or_live((o, d, tmin, tmax),
+                                                   kind == "all live")
+    got = ik.occluded_tris(o, d, tmin, tmax, occ)
+    assert torch.equal(got, ik.occluded_tris_plain(o, d, tmin, tmax, occ))
+    if T == 0 or kind == "all dead":
+        assert not bool(got.any())
+    elif T >= 32:
+        assert bool(got.any())
+    assert not bool(got[~(tmax > tmin)].any())
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
     scene, _ = get_scene_by_name("CornellSmall", cuda)
-    tri9 = ik.tri9_from_geometry(scene.geometry)
+    tri9, occ = dense_tables(scene)
     o, d, tmin, tmax = rays(64, 0, cuda)
     with pytest.raises(ValueError, match="float32"):
         ik.closest_hit_tris(o.double(), d, tmin, tmax, tri9)
     with pytest.raises(ValueError, match="contiguous"):
         ik.closest_hit_tris(o, d, tmin, tmax, tri9.T.contiguous().T)
+    shifted = torch.zeros(occ.numel() + 1, device=cuda)[1:].reshape(
+        occ.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ik.occluded_tris(o, d, tmin, tmax, shifted)
+    with pytest.raises(ValueError, match="shape"):
+        ik.occluded_tris(o, d, tmin, tmax, occ[:, :9].contiguous())
 
 
 def test_render_on_the_card_matches_the_cpu_render(cuda):
@@ -122,6 +154,25 @@ def test_gather_kernel_matches_plain_version(cuda, case):
                                atol=chip_smoke.GATHER_ATOL_REL
                                * float(want.abs().max()))
     assert (int(gst["photon_subsampled"].sum()) > 0) == cluster
+
+
+@pytest.mark.parametrize("check_normal", [True, False])
+def test_gather_kernel_on_the_ppm_main_shape(cuda, check_normal):
+    """B3, its slots in SLOT_GROUPS groups, against its plain version on the
+    grid and hitpoints of one CornellSmall 512^2 PPM iteration."""
+    grid, q, qn, r, u, valid = chip_smoke.ppm_gather_inputs(cuda)
+    starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u, valid)
+    args = (starts, lens, weights, rows,
+            torch.square(torch.as_tensor(r, dtype=torch.float32,
+                                         device=cuda)), q, qn, grid,
+            check_normal)
+    got = gk.gather_photons_tiled_kernel(*args)
+    want = gk.gather_photons_tiled_plain(*args)
+    assert float(want.abs().max()) > 0.0
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=chip_smoke.GATHER_RTOL,
+                               atol=chip_smoke.GATHER_ATOL_REL
+                               * float(want.abs().max()))
 
 
 def test_ppm_launch_counts_and_cpu_agreement(cuda):
@@ -185,7 +236,9 @@ def vcm_merge(scene, cfg, k):
 
 def test_vcm_launch_counts_and_cpu_agreement(cuda):
     """Per VCM+VM iteration at path length L: B1 (L-1) + L times, B2
-    (L-1) + L + L (L-1) times, B4 L times; none on the CPU."""
+    (L-1) + L times (one launch per light bounce, one per camera bounce
+    for its s=1 and vertex-connection shadow rays together), B4 L times;
+    none on the CPU."""
     L = 4
     cfg = RenderConfig(
         width=32, height=32, vcm_max_path_length=L, photon_grid_resolution=16,
@@ -202,8 +255,7 @@ def test_vcm_launch_counts_and_cpu_agreement(cuda):
         counts = [w.launches - c for w, c in zip(wrappers, counts)]
         if dev == "cpu":
             assert counts == [0, 0, 0]
-    assert counts == [2 * (2 * L - 1), 2 * ((L - 1) + L + L * (L - 1)),
-                      2 * L]
+    assert counts == [2 * (2 * L - 1), 2 * ((L - 1) + L), 2 * L]
     assert np.isfinite(imgs[1]).all()
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
 

@@ -80,6 +80,32 @@ def test_grid_build_is_bit_identical(cluster, resolution, radius):
     assert tg.resolution == jg.resolution
 
 
+@pytest.mark.parametrize("cluster", [False, True])
+def test_packed_records_equal_the_grid_fields(cluster):
+    """B3's kernel reads PhotonGrid.packed: each photon's fields, in
+    (position, x), (direction, 0), (power, 0), x the x index of the grid
+    cell that holds the photon, written by the grid's sort; the grid built
+    from JAX's arrays through interop packs the same records."""
+    jb, tb = both_batches(make_photons(cluster=cluster))
+    res = 16
+    jg, g = jpm.build_photon_grid(jb, res), pm.build_photon_grid(tb, res)
+    p = g.packed
+    assert p.shape == (g.position.shape[0], pm.PHOTON_RECORD)
+    assert p.dtype == torch.float32 and p.is_contiguous()
+    for cols, field in (((0, 3), "position"), ((4, 7), "direction"),
+                        ((8, 11), "power")):
+        assert torch.equal(p[:, cols[0]:cols[1]], getattr(g, field))
+    off = g.offsets.long()
+    n_in = int(off[-1])                  # photons in some cell
+    cell = torch.repeat_interleave(torch.arange(res ** 3),
+                                   off[1:] - off[:-1])
+    assert torch.equal(p[:n_in, 3], (cell % res).to(torch.float32))
+    assert bool((p[n_in:, 3] == 0).all()) and n_in < p.shape[0]
+    assert int(torch.count_nonzero(p[:, [7, 11]])) == 0
+    assert torch.equal(
+        interop.photon_grid_from_numpy(grid_leaves(jg), "cpu").packed, p)
+
+
 def test_grid_of_no_valid_photon():
     leaves = make_photons(n=64)
     leaves["valid"][:] = False

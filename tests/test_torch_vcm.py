@@ -291,6 +291,49 @@ def test_variants_match_jax(flags):
         wst["light_vertices_stored"], rel=5e-3)
 
 
+@pytest.mark.parametrize("uniform", [False, True],
+                         ids=["one_to_one", "uniform_vertex_sampling"])
+def test_batched_shadow_rays_equal_per_technique_occlusion(uniform,
+                                                           monkeypatch):
+    """A camera bounce traces the shadow rays of s=1 and of every vertex
+    connection in one batch. One iteration is bit-identical to tracing
+    each technique's rays alone and adding its contribution in turn, as
+    the JAX package does; the batch takes (L-1) + L shadow-ray calls an
+    iteration where that took (L-1) + L + L x connections."""
+    ts, tc = get_scene_by_name("CornellSmall", "cpu")
+    cfg = port_cfg(vcm_uniform_vertex_sampling=uniform, vcm_use_vm=uniform)
+    occluded = vcm.occluded
+    calls = []
+
+    def counted(*args):
+        calls.append(args[1].shape[0])
+        return occluded(*args)
+
+    def per_technique(scene, color, origin, tmin, terms):
+        for d, tmax, contrib, ok in terms:
+            blocked = vcm.occluded(scene, origin, d, tmin, tmax)
+            color = color + torch.where((ok & ~blocked)[:, None], contrib,
+                                        0.0)
+        return color
+
+    monkeypatch.setattr(vcm, "occluded", counted)
+    images = []
+    for add in (vcm._add_unoccluded, per_technique):
+        monkeypatch.setattr(vcm, "_add_unoccluded", add)
+        calls.clear()
+        img, _ = vcm.render_iteration(ts, tc, cfg, 0, make_root_key(SEED),
+                                      radius_sq())
+        images.append(img)
+        L, n = cfg.vcm_max_path_length, SIZE * SIZE
+        conn = cfg.vcm_uniform_connections if uniform else L - 1
+        if add is per_technique:
+            assert calls == [n] * ((L - 1) + L * (1 + conn))
+        else:
+            assert sorted(calls) == [n] * (L - 1) + [(1 + conn) * n] * L
+    assert float(images[0].mean()) > 0.0
+    assert torch.equal(images[0], images[1])
+
+
 def test_ablation_is_a_part_of_the_total(iteration_pair):
     """The techniques partition the estimator: without t=1 and s=1 the
     image loses energy, never gains."""
