@@ -4,9 +4,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-or, to time an earlier tree's B2-B5 in turns with this one's (phase
+or, to time the parent tree's kernels in turns with this one's (phase
 parent-ab), with that tree's kernel sources unpacked under a directory
-(``git archive <commit> oppositerenderer_tpu_torch/csrc``):
+(``git archive 11d34d2 oppositerenderer_tpu_torch/csrc``; the parent's
+entry points are PARENT_ENTRY_POINTS):
 
     python3 chip_smoke.py --parent _chip_tree/parent
 
@@ -24,12 +25,13 @@ and the script exits non-zero without printing the result line:
                  BVH builder (``native/bvh_builder.cpp``).
 3. kernels     - each kernel against its plain PyTorch version on the same
                  CUDA tensors. B1 and B2 (random rays from a numpy seed, at
-                 the PT path's shape and beyond; B2 also on occluder tables
-                 of 32 and 4096 triangles with mixed, all dead and all live
-                 lanes, and on every shadow-ray call of one CornellSmall
-                 512^2 VCM iteration, each timed against its live lanes and
-                 summed) must be equal bit for bit (the library is built
-                 with --fmad=false). B3 with check_normal on and off on
+                 the PT path's shape and beyond; both on tables of 32 and
+                 4096 triangles with mixed, all dead and all live lanes;
+                 B1 on every closest-hit call of one CornellSmall 512^2
+                 PT, PPM and VCM iteration, B2 on every shadow-ray call of
+                 one VCM iteration, each call timed against its live lanes
+                 and its bound and summed per iteration) must be equal bit
+                 for bit (the library is built with --fmad=false). B3 with check_normal on and off on
                  three inputs: the synthetic case of
                  tests/test_pallas_gather.py, its clustered variant with
                  random u_rows (row and chunk subsampling), and the grid and
@@ -56,12 +58,15 @@ and the script exits non-zero without printing the result line:
                  (the least time of the card for the same work: for B3/B4
                  the pairs each query needs, for B5 the tests and row
                  floats the traversal needs, from the plain version's
-                 counts). With ``--parent``: phase parent-ab, the earlier
-                 tree's B2-B5 built by the same nvcc flags and timed in
-                 turns with this tree's (B2 over one VCM iteration, its
-                 per-technique launches against this tree's batches on the
-                 same rays; B3 at the PPM main shape; B4 and B5 on every
-                 call of their iterations), their outputs compared.
+                 counts). With ``--parent``: phase parent-ab, the parent
+                 tree's kernels built by the same nvcc flags and timed in
+                 turns with this tree's, their outputs compared: B1 on
+                 every closest-hit call of one PPM and one VCM iteration
+                 and on the 4096-triangle soup; B2-B5, which the parent
+                 shares, as an A/A check (this tree's wrappers launching
+                 the parent's library: B2 over one VCM iteration, B3 at
+                 the PPM main shape, B4 and B5 on every call of their
+                 iterations).
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -108,6 +113,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import importlib
@@ -187,6 +193,10 @@ CONFERENCE_SIZE = 1024
 CONFERENCE_ITERS = 2
 BVH_PARITY_SIZE = 64
 PLAIN_BVH_REPS = 3
+# the kernels phase's random triangle soup: B1 and B2 beyond the Cornell
+# scenes' 36 triangles, up to the dense route's 4096
+SOUP_TRIS = 4096
+SOUP_BOX = ([0.0] * 3, [10.0] * 3)
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and FP32 operations/s outside the tensor cores
@@ -458,36 +468,32 @@ def phase_kernels(dev) -> dict:
         return (*dense_tables(scene), scene.aabb_min.tolist(),
                 scene.aabb_max.tolist())
 
-    rng = np.random.default_rng(4096)
-    v0 = rng.uniform(0.0, 10.0, (4096, 3))
-    e1 = rng.normal(0.0, 0.5, (4096, 3))
-    e2 = rng.normal(0.0, 0.5, (4096, 3))
-    soup9 = torch.as_tensor(np.concatenate([v0.T, e1.T, e2.T]).astype(
-        np.float32), device=dev).contiguous()
-    soup_occ = ik.occluder_records(soup9, torch.as_tensor(
-        rng.random(4096) < 0.9, device=dev))
+    soup9 = soup_tri9(dev)
+    rng = np.random.default_rng(4097)
+    soup_occ = ik.triangle_records(soup9, torch.as_tensor(
+        rng.random(SOUP_TRIS) < 0.9, device=dev))
     n_main = MAIN_SIZE * MAIN_SIZE
     cases = [
         ("CornellSmall", n_main, *scene_case("CornellSmall")),
         ("CornellSmallLargeSphere", n_main,
          *scene_case("CornellSmallLargeSphere")),
-        ("soup4096", n_main, soup9, soup_occ, [0.0] * 3, [10.0] * 3),
+        ("soup4096", n_main, ik.triangle_records(soup9), soup_occ,
+         *SOUP_BOX),
         ("CornellSmall", 131, *scene_case("CornellSmall")),
     ]
     out = {name: {"max_abs_err": 0.0} for name in KERNELS}
-    for i, (name, n, tri9, occ_tab, lo, hi) in enumerate(cases):
+    for i, (name, n, tris, occ_tab, lo, hi) in enumerate(cases):
         o, d, tmin, tmax = _rays(n, 100 + i, lo, hi, dev)
-        got = ik.closest_hit_tris(o, d, tmin, tmax, tri9)
-        want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tri9)
+        got = ik.closest_hit_tris(o, d, tmin, tmax, tris)
+        want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tris)
         hit = want[1] >= 0
         err = max(_max_abs(got[k], want[k], hit) for k in (0, 2, 3))
         for label, a, b in zip(("t", "idx", "u", "v"), got, want):
-            if not torch.equal(a, b):
-                bad = int((a != b).sum())
+            if _bits_differ(a, b):
                 raise AssertionError(
                     f"closest_hit_tris differs from its plain version on "
-                    f"{name} n={n}: {label} differs in {bad} rays "
-                    f"(max |err| on hits {err:.3g})")
+                    f"{name} n={n}: {label} differs in {_bits_differ(a, b)} "
+                    f"rays (max |err| on hits {err:.3g})")
         occ = ik.occluded_tris(o, d, tmin, tmax, occ_tab)
         occ_plain = ik.occluded_tris_plain(o, d, tmin, tmax, occ_tab)
         if not torch.equal(occ, occ_plain):
@@ -498,17 +504,17 @@ def phase_kernels(dev) -> dict:
             out["closest_hit_tris"]["max_abs_err"], err)
         timing = ""
         if name == MAIN_SCENE and n == n_main:   # the main path's shape
-            out["closest_hit_tris"].update(dense_bound(o, d, tmin, tmax, tri9,
-                                                       None))
-            out["occluded_tris"].update(dense_bound(o, d, tmin, tmax, None,
-                                                    occ_tab))
+            out["closest_hit_tris"].update(dense_bound(o, d, tmin, tmax,
+                                                       tris, False))
+            out["occluded_tris"].update(dense_bound(o, d, tmin, tmax,
+                                                    occ_tab, True))
         if n == n_main:
             ms = {
                 "closest_hit_tris": (
                     cuda_ms(lambda: ik.closest_hit_tris(o, d, tmin, tmax,
-                                                        tri9)),
+                                                        tris)),
                     cuda_ms(lambda: ik.closest_hit_tris_plain(o, d, tmin,
-                                                              tmax, tri9),
+                                                              tmax, tris),
                             batch=1, graph=False)),
                 "occluded_tris": (
                     cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax,
@@ -520,10 +526,15 @@ def phase_kernels(dev) -> dict:
             if name == MAIN_SCENE:   # the main path's shape
                 for k, (a, b) in ms.items():
                     out[k].update(ms=a, plain_ms=b)
-        print(f"[kernels] {name} rays={n} tris={tri9.shape[1]} occluders="
-              f"{occ_tab.shape[0]}: equal to plain (hits {int(hit.sum())}, "
-              f"occluded {int(occ.sum())}){timing}")
-    b2_lane_cases(dev, soup9)
+            else:
+                for k, (a, b) in ms.items():
+                    out[k][name] = {"ms": a, "plain_ms": b}
+        print(f"[kernels] {name} rays={n} tris={tris.shape[0]} occluders="
+              f"{occ_tab.shape[0]}: equal to plain bit for bit (hits "
+              f"{int(hit.sum())}, occluded {int(occ.sum())}){timing}")
+    for k, v in dense_lane_cases(dev, soup9).items():
+        out[k]["lane_cases"] = v
+    out["closest_hit_tris"]["per_iteration"] = b1_iterations(dev)
     out["occluded_tris"]["per_iteration"] = {
         f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM": b2_vcm_iteration(dev)}
     out["gather_photons_tiled"] = gather_kernel_cases(dev)
@@ -532,58 +543,160 @@ def phase_kernels(dev) -> dict:
     return out
 
 
-def b2_lane_cases(dev, soup9) -> None:
-    """B2 bit for bit against its plain version on occluder tables of 32
-    and 4096 triangles (every one an occluder), with a mix of dead and live
-    lanes, all lanes dead and all live; its time on each."""
+def soup_tri9(dev, n_tris: int = SOUP_TRIS) -> torch.Tensor:
+    """[9, n_tris]: the random triangle soup of the kernels phase (v0 in
+    SOUP_BOX, edges normal with sigma 0.5), from a numpy seed."""
+    rng = np.random.default_rng(4096)
+    v0 = rng.uniform(0.0, 10.0, (n_tris, 3))
+    e1 = rng.normal(0.0, 0.5, (n_tris, 3))
+    e2 = rng.normal(0.0, 0.5, (n_tris, 3))
+    return torch.as_tensor(np.concatenate([v0.T, e1.T, e2.T]).astype(
+        np.float32), device=dev).contiguous()
+
+
+def dense_lane_cases(dev, soup9) -> dict:
+    """B1 and B2 bit for bit against their plain versions on the first 32
+    and the 4096 triangles of the soup (every one an occluder for B2),
+    with a mix of dead and live lanes, all lanes dead and all live; each
+    one's time against its bound. Returns {kernel: {"T=.. kind": ...}}."""
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
     n = MAIN_SIZE * MAIN_SIZE
-    for T in (32, 4096):
-        occ_tab = ik.occluder_records(
-            soup9[:, :T].contiguous(),
-            torch.ones(T, dtype=torch.bool, device=dev))
-        rays = _rays(n, 200 + T, [0.0] * 3, [10.0] * 3, dev)
+    kernels = (("closest_hit_tris", ik.closest_hit_tris,
+                ik.closest_hit_tris_plain),
+               ("occluded_tris", ik.occluded_tris, ik.occluded_tris_plain))
+    out = {name: {} for name, _, _ in kernels}
+    for T in (32, SOUP_TRIS):
+        tab = ik.triangle_records(soup9[:, :T].contiguous())
+        rays = _rays(n, 200 + T, *SOUP_BOX, dev)
         for kind, (o, d, tmin, tmax) in (
                 ("mixed", rays), ("all dead", dead_or_live(rays, False)),
                 ("all live", dead_or_live(rays, True))):
-            got = ik.occluded_tris(o, d, tmin, tmax, occ_tab)
-            want = ik.occluded_tris_plain(o, d, tmin, tmax, occ_tab)
-            if not torch.equal(got, want):
+            live = int((tmax > tmin).sum())
+            for name, fn, plain in kernels:
+                got, want = fn(o, d, tmin, tmax, tab), plain(o, d, tmin,
+                                                             tmax, tab)
+                if name == "occluded_tris":
+                    got, want = (got,), (want,)
+                bad = sum(_bits_differ(a, b) for a, b in zip(got, want))
+                if bad:
+                    raise AssertionError(
+                        f"{name} differs from its plain version on T={T} "
+                        f"{kind} in {bad} values")
+                ms = cuda_ms(lambda: fn(o, d, tmin, tmax, tab))
+                b = dense_bound(o, d, tmin, tmax, tab,
+                                name == "occluded_tris")
+                found = int((got[1] >= 0).sum() if len(got) > 1
+                            else got[0].sum())
+                out[name][f"T={T} {kind}"] = {
+                    "live": live, "found": found, "ms": ms,
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+                print(f"[kernels] {name} T={T} {kind}: rays={n} live {live}, "
+                      f"found {found}; equal bit for bit; ms kernel "
+                      f"{ms:.4f}, bound {b['bound_ms']:.4f} "
+                      f"({b['bound_by']})")
+    return out
+
+
+def iteration_calls(scene, cam, cfg, names):
+    """The calls of the wrappers ``names`` in one iteration (iteration 0,
+    seed 0) of ``cfg``, recorded where ``accel/intersect.py`` calls them:
+    per name, each call's first five positional arguments, in call
+    order."""
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    # the module (the package exports a function of the same name)
+    isect = importlib.import_module(
+        "oppositerenderer_tpu_torch.accel.intersect")
+    calls = {k: [] for k in names}
+    wrappers = {k: getattr(isect, k) for k in names}
+
+    def recorder(k):
+        def record(*args, **kwargs):
+            calls[k].append(args[:5])
+            return wrappers[k](*args, **kwargs)
+        return record
+
+    for k in names:
+        setattr(isect, k, recorder(k))
+    try:
+        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
+    finally:
+        for k, w in wrappers.items():
+            setattr(isect, k, w)
+    return calls
+
+
+def closest_hit_calls(dev, method: str):
+    """Every call of B1's wrapper in one CornellSmall 512^2 iteration of
+    ``method`` ("PT" with the default RenderConfig, "PPM" with 1<<20
+    photons, "VCM" with L = 10: the main phases' configurations), each
+    (o, d, tmin, tmax, tris). PT calls it once a segment, PPM once an eye
+    and once a photon bounce, VCM once a light and a camera bounce."""
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    cfg = {"PT": lambda: RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE),
+           "PPM": ppm_main_config, "VCM": vcm_main_config}[method]()
+    want = {"PT": cfg.pt_max_segments,
+            "PPM": cfg.max_radiance_trace_depth + cfg.max_photon_trace_depth,
+            "VCM": 2 * cfg.vcm_max_path_length - 1}[method]
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    calls = iteration_calls(scene, cam, cfg,
+                            ("closest_hit_tris",))["closest_hit_tris"]
+    if len(calls) != want:
+        raise AssertionError(f"{len(calls)} closest-hit calls in one "
+                             f"{method} iteration, expected {want}")
+    return calls
+
+
+def b1_iterations(dev) -> dict:
+    """B1 on every closest-hit call of one CornellSmall 512^2 PT, PPM and
+    VCM iteration: bit for bit against its plain version, each call timed
+    against its live lanes and its bound; the sums are B1's time and bound
+    per iteration."""
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    out = {}
+    for method in ("PT", "PPM", "VCM"):
+        it = {"calls": 0, "lanes": 0, "live": 0, "ms": 0.0, "bound_ms": 0.0}
+        for i, (o, d, tmin, tmax, tris) in enumerate(
+                closest_hit_calls(dev, method)):
+            got = ik.closest_hit_tris(o, d, tmin, tmax, tris)
+            want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tris)
+            bad = sum(_bits_differ(a, b) for a, b in zip(got, want))
+            if bad:
                 raise AssertionError(
-                    f"occluded_tris differs from its plain version on T={T} "
-                    f"{kind} in {int((got != want).sum())} rays")
-            ms = cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, occ_tab))
-            b = dense_bound(o, d, tmin, tmax, None, occ_tab)
-            print(f"[kernels] B2 T={T} {kind}: rays={n} live "
-                  f"{int((tmax > tmin).sum())}, occluded {int(got.sum())}; "
-                  f"equal bit for bit; ms kernel {ms:.4f}, bound "
-                  f"{b['bound_ms']:.4f} ({b['bound_by']})")
+                    f"closest_hit_tris differs from its plain version on "
+                    f"{method} call {i} in {bad} values")
+            ms = cuda_ms(lambda: ik.closest_hit_tris(o, d, tmin, tmax, tris))
+            b = dense_bound(o, d, tmin, tmax, tris, False)
+            n, live = o.shape[0], int((tmax > tmin).sum())
+            it["calls"] += 1
+            it["lanes"] += n
+            it["live"] += live
+            it["ms"] += ms
+            it["bound_ms"] += b["bound_ms"]
+            print(f"[kernels] B1 {MAIN_SCENE} {MAIN_SIZE}^2 {method} call "
+                  f"{i}: lanes {n}, live {live} ({live / n:.4f}), hits "
+                  f"{int((got[1] >= 0).sum())}; equal bit for bit; ms "
+                  f"kernel {ms:.4f}, bound {b['bound_ms']:.4f} "
+                  f"({b['bound_by']})")
+        print(f"[kernels] B1 per {MAIN_SCENE} {MAIN_SIZE}^2 {method} "
+              f"iteration: {it['calls']} launches {it['ms']:.4f} ms over "
+              f"{it['lanes']} lanes ({it['live']} live); bound "
+              f"{it['bound_ms']:.4f} ms")
+        out[f"{MAIN_SCENE} {MAIN_SIZE}^2 {method}"] = it
+    return out
 
 
 def vcm_shadow_calls(dev):
     """Every call of B2's wrapper in one CornellSmall 512^2 VCM iteration
-    (iteration 0, seed 0, the bench's VCM configuration, L = 10): the t=1
-    splats' shadow rays of each light bounce, then each camera bounce's
-    batch of its s=1 and vertex-connection shadow rays. Returns (cfg,
-    [(o, d, tmin, tmax, occ)] in call order)."""
-    from oppositerenderer_tpu_torch.renderer import Renderer
+    (the bench's VCM configuration, L = 10): the t=1 splats' shadow rays
+    of each light bounce, then each camera bounce's batch of its s=1 and
+    vertex-connection shadow rays. Returns (cfg, [(o, d, tmin, tmax,
+    occ)] in call order)."""
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
-    isect = importlib.import_module(
-        "oppositerenderer_tpu_torch.accel.intersect")
     scene, cam = get_scene_by_name(MAIN_SCENE, dev)
     cfg = vcm_main_config()
-    calls = []
-    wrapper = isect.occluded_tris
-
-    def record(o, d, tmin, tmax, occ, chunk_size=None):
-        calls.append((o, d, tmin, tmax, occ))
-        return wrapper(o, d, tmin, tmax, occ, chunk_size)
-
-    isect.occluded_tris = record
-    try:
-        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
-    finally:
-        isect.occluded_tris = wrapper
+    calls = iteration_calls(scene, cam, cfg,
+                            ("occluded_tris",))["occluded_tris"]
     L = cfg.vcm_max_path_length
     if len(calls) != (L - 1) + L:
         raise AssertionError(f"{len(calls)} shadow-ray calls in one VCM "
@@ -607,7 +720,7 @@ def b2_vcm_iteration(dev) -> dict:
                 f"occluded_tris differs from its plain version on VCM "
                 f"shadow-ray call {i} in {int((got != want).sum())} rays")
         ms = cuda_ms(lambda: ik.occluded_tris(o, d, tmin, tmax, occ_tab))
-        b = dense_bound(o, d, tmin, tmax, None, occ_tab)
+        b = dense_bound(o, d, tmin, tmax, occ_tab, True)
         n, live = o.shape[0], int((tmax > tmin).sum())
         it["calls"] += 1
         it["lanes"] += n
@@ -624,37 +737,35 @@ def b2_vcm_iteration(dev) -> dict:
     return it
 
 
-def _first_blocker(o, d, tmin, tmax, tri9, chunk=16384):
-    """Per ray, the tests any hit makes over ``tri9``'s triangles in order:
-    up to and including its first hit, all of them on a miss, none on a
-    dead lane (the plain version's arithmetic, in chunks of rays)."""
+def _first_blocker(o, d, tmin, tmax, tab, chunk=16384):
+    """Per ray, the tests any hit makes over the record table ``tab`` in
+    order: up to and including its first hit, all of them on a miss, none
+    on a dead lane (the plain version's arithmetic, in chunks of rays)."""
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
-    T = tri9.shape[1]
+    T = tab.shape[0]
     parts = []
     for s in range(0, o.shape[0], chunk):
         sl = slice(s, s + chunk)
-        *_, valid = ik._mt_terms(o[sl], d[sl], tmin[sl], tmax[sl], tri9)
+        *_, valid = ik._mt_terms(o[sl], d[sl], tmin[sl], tmax[sl], tab)
         first = torch.where(valid.any(dim=1),
                             valid.int().argmax(dim=1) + 1, T)
         parts.append(torch.where(tmax[sl] > tmin[sl], first, 0))
     return torch.cat(parts)
 
 
-def dense_bound(o, d, tmin, tmax, tri9, occ_tab) -> dict:
-    """B1's (``tri9``) or B2's (``occ_tab``) bound on these rays. B1:
-    every live ray tests every triangle; the rays, the triangles and the
-    results cross HBM once. B2: every live ray tests the occluders up to
-    its first hit; every lane's tmin, tmax and flag, the live lanes' o and
-    d and the occluder table cross HBM once."""
-    n = o.shape[0]
+def dense_bound(o, d, tmin, tmax, tab, any_hit: bool) -> dict:
+    """B1's (``any_hit`` False) or B2's bound on these rays against the
+    record table ``tab``: every lane's tmin, tmax and outputs (B1's four,
+    16 bytes; B2's flag), the live lanes' o and d and the table's 48 bytes
+    a triangle cross HBM once; B1's live rays test every triangle, B2's
+    the occluders up to their first hit."""
+    n, T = o.shape[0], tab.shape[0]
     live = int((tmax > tmin).sum())
-    if occ_tab is None:
-        T = tri9.shape[1]
-        return bound(n * (32 + 16) + T * 36, live * T * MT_FLOPS)
-    tri9 = occ_tab[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]].T.contiguous()
-    tests = int(_first_blocker(o, d, tmin, tmax, tri9).sum())
-    return bound(n * (8 + 1) + live * 24 + occ_tab.shape[0] * 36,
-                 tests * MT_FLOPS)
+    if any_hit:
+        tests, out_bytes = int(_first_blocker(o, d, tmin, tmax, tab).sum()), 1
+    else:
+        tests, out_bytes = live * T, 16
+    return bound(n * (8 + out_bytes) + live * 24 + T * 48, tests * MT_FLOPS)
 
 
 def gather_case(dev, n_photons=4096, n_tiles=2, radius=0.12, seed=0,
@@ -1085,31 +1196,13 @@ def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def pt_traversal_calls(scene, cam, size: int):
     """The traversal calls of one PT iteration of a BVH scene at size^2
-    (iteration 0, seed 0, the default RenderConfig), recorded where
-    ``accel/intersect.py`` calls the BVH wrappers: (closest-hit inputs,
-    any-hit inputs), each a list of (o, d, tmin, tmax) per call."""
+    (the default RenderConfig): (closest-hit inputs, any-hit inputs), each
+    a list of (bvh, o, d, tmin, tmax) per call."""
     from oppositerenderer_tpu_torch.config import RenderConfig
-    from oppositerenderer_tpu_torch.renderer import Renderer
-    # the module (the package exports a function of the same name)
-    isect = importlib.import_module("oppositerenderer_tpu_torch.accel.intersect")
-    calls = {"traverse": [], "traverse_any": []}
-    wrappers = {k: getattr(isect, k) for k in calls}
-
-    def recorder(k):
-        def record(bvh, o, d, tmin, tmax):
-            calls[k].append((o, d, tmin, tmax))
-            return wrappers[k](bvh, o, d, tmin, tmax)
-        return record
-
-    cfg = RenderConfig(width=size, height=size)
-    for k in calls:
-        setattr(isect, k, recorder(k))
-    try:
-        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
-    finally:
-        for k, w in wrappers.items():
-            setattr(isect, k, w)
-    return calls["traverse"], calls["traverse_any"]
+    calls = iteration_calls(scene, cam, RenderConfig(width=size, height=size),
+                            ("traverse", "traverse_any"))
+    return ([c[1:] for c in calls["traverse"]],
+            [c[1:] for c in calls["traverse_any"]])
 
 
 def bvh_bound(bvh, n: int, any_hit: bool, visits, row_floats) -> dict:
@@ -1684,15 +1777,18 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
     return launches
 
 
-# The parent tree's B2-B5 entry points (their argument types), for a
-# same-call comparison with ``--parent``: one launch each, no scratch.
+# The parent tree's entry points and their argument types, as its
+# accel/cuda_build.py has them at commit 11d34d2: B1 took the [9, T]
+# table, B2-B5 take what this tree's take.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_ENTRY_POINTS = {
-    "occluded_tris": [_P] * 6 + [_I, _I] + [_P] * 2,
-    "gather_photons_tiled": [_P] * 9 + [_I, _I] + [_P] * 2,
+    "closest_hit_tris": [_P] * 5 + [_I, _I] + [_P] * 5,
+    "occluded_tris": [_P] * 5 + [_I, _I] + [_P] * 2,
+    "gather_photons_tiled": [_P] * 11 + [_I] * 4 + [_P] * 3,
     "merge_vertices_tiled": [_P] * 10 + [_I] * 3 + [_P] * 4,
     "bvh_closest": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 6,
     "bvh_any": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 2,
+    "bvh_compact_live": [_P] * 2 + [_I] + [_P] * 3,
 }
 
 
@@ -1715,6 +1811,20 @@ def parent_library(parent: Path) -> ctypes.CDLL:
     return lib
 
 
+@contextlib.contextmanager
+def kernels_of(lib: ctypes.CDLL):
+    """Inside the block the port's wrappers launch ``lib``'s kernels (its
+    entry points must take this tree's arguments) instead of the built
+    library's."""
+    from oppositerenderer_tpu_torch.accel import cuda_build
+    own = cuda_build.library
+    cuda_build.library = lambda: lib
+    try:
+        yield
+    finally:
+        cuda_build.library = own
+
+
 def in_turns(old, new, graph: bool = True) -> tuple[float, float]:
     """``cuda_ms`` medians of the parent's and this tree's launches in turns
     (parent, this, this, parent): the mean of each pair."""
@@ -1722,182 +1832,182 @@ def in_turns(old, new, graph: bool = True) -> tuple[float, float]:
     return (a + e) / 2, (b + c) / 2
 
 
+def parent_b1(lib, calls, label: str) -> dict:
+    """The parent's B1 (on the [9, T] rows of each call's records) and
+    this tree's in turns on each of ``calls``, outputs bit for bit;
+    returns the sums and each call's times."""
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    acc = {"calls": 0, "parent_iteration_ms": 0.0, "iteration_ms": 0.0,
+           "per_call": []}
+    for i, (o, d, tmin, tmax, tris) in enumerate(calls):
+        tri9 = tris[:, list(ik._TRI9_COLS)].T.contiguous()
+        n = o.shape[0]
+        res = (torch.empty(n, device=o.device),
+               torch.empty(n, dtype=torch.int32, device=o.device),
+               torch.empty(n, device=o.device), torch.empty(n, device=o.device))
+
+        def old():
+            rc = lib.closest_hit_tris(
+                o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+                tri9.data_ptr(), n, tri9.shape[1],
+                *(a.data_ptr() for a in res),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's closest_hit_tris failed: "
+                                   f"cudaError {rc}")
+
+        def new():
+            return ik.closest_hit_tris(o, d, tmin, tmax, tris)
+
+        old()
+        bad = sum(_bits_differ(a, b) for a, b in zip(res, new()))
+        if bad:
+            raise AssertionError(f"B1 {label} call {i}: this tree differs "
+                                 f"from the parent in {bad} values")
+        t_old, t_new = in_turns(old, new)
+        live = int((tmax > tmin).sum())
+        acc["calls"] += 1
+        acc["parent_iteration_ms"] += t_old
+        acc["iteration_ms"] += t_new
+        acc["per_call"].append([n, live, t_old, t_new])
+        print(f"[parent-ab] B1 {label} call {i}: lanes {n}, live {live}; "
+              f"parent {t_old:.4f} ms, this tree {t_new:.4f} ms (in turns, "
+              f"medians of {TIMING_REPS}); equal bit for bit")
+    print(f"[parent-ab] B1 {label}: parent {acc['parent_iteration_ms']:.4f} "
+          f"ms, this tree {acc['iteration_ms']:.4f} ms over "
+          f"{acc['calls']} calls")
+    return acc
+
+
 def phase_parent_ab(dev, parent: Path) -> dict:
-    """B2-B5 of the parent tree against this tree's, in one call on one
-    card: B2 over one CornellSmall 512^2 VCM iteration (the parent's
-    launch per light bounce and per technique of each camera bounce, 109,
-    against this tree's 19 on the same rays, booleans equal), B3 on the
-    PPM main shape (within GATHER_RTOL), B4 on every call of one VCM+VM
-    iteration and B5 on every call of one Atrium 512^2 and Conference
-    1024^2 PT iteration: each timed in turns, the outputs compared (B2 and
-    B5 bit for bit, B3 and B4 within their tolerances). Returns, per
+    """This tree's kernels against the parent tree's, in one call on one
+    card, each timed in turns with its outputs compared: B1 (redesigned
+    since) on every closest-hit call of one CornellSmall 512^2 PPM and VCM
+    iteration and on the 4096-triangle soup, bit for bit; and, as an A/A
+    check of kernels the parent shares (the port's wrappers launching the
+    parent's library), B2 over one VCM iteration (bit for bit), B3 at the
+    PPM main shape (within GATHER_RTOL), B4 on every merge round of one
+    VCM+VM iteration (within VM_RTOL) and B5 on every call of one Atrium
+    512^2 and Conference 1024^2 PT iteration (bit for bit). Returns, per
     kernel, the parent's and this tree's ms at the timed shapes and summed
     over the iteration."""
     from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
     from oppositerenderer_tpu_torch.accel import gather_kernels as gk
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
     from oppositerenderer_tpu_torch.accel import vm_kernels as vk
-    from oppositerenderer_tpu_torch.accel.intersect import (dense_tables,
-                                                            occluder_mask)
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
     lib = parent_library(parent)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def check(rc, name):
-        if rc != 0:
-            raise RuntimeError(f"the parent's {name} failed: cudaError {rc}")
+    def aa(fn):
+        """fn, launching the parent's kernels."""
+        def run():
+            with kernels_of(lib):
+                return fn()
+        return run
 
-    out = {}
-    # B2: the parent's call per technique is one slice of N lanes of a
-    # camera bounce's batch
-    scene, _ = get_scene_by_name(MAIN_SCENE, dev)
-    tri9 = dense_tables(scene)[0]
-    mask = occluder_mask(scene, scene.geometry.tri_mat).contiguous()
+    out = {"closest_hit_tris": {}}
+    for method in ("PPM", "VCM"):
+        out["closest_hit_tris"][f"{MAIN_SCENE} {MAIN_SIZE}^2 {method}"] = \
+            parent_b1(lib, closest_hit_calls(dev, method),
+                      f"{MAIN_SCENE} {MAIN_SIZE}^2 {method}")
+    soup = (*_rays(MAIN_SIZE * MAIN_SIZE, 102, *SOUP_BOX, dev),
+            ik.triangle_records(soup_tri9(dev)))
+    out["closest_hit_tris"]["soup4096"] = parent_b1(lib, [soup], "soup4096")
+
+    # B2 (A/A) over one VCM iteration
     _, calls = vcm_shadow_calls(dev)
-    n = MAIN_SIZE * MAIN_SIZE
-    pieces = [tuple(a[k:k + n] for a in call[:4])
-              for call in calls for k in range(0, call[0].shape[0], n)]
-    old_occ = [torch.empty(n, dtype=torch.bool, device=dev) for _ in pieces]
 
-    def old_b2():
-        for (o, d, tmin, tmax), res in zip(pieces, old_occ):
-            check(lib.occluded_tris(o.data_ptr(), d.data_ptr(),
-                                    tmin.data_ptr(), tmax.data_ptr(),
-                                    tri9.data_ptr(), mask.data_ptr(), n,
-                                    tri9.shape[1], res.data_ptr(), stream()),
-                  "occluded_tris")
+    def b2():
+        return torch.cat([ik.occluded_tris(*call) for call in calls])
 
-    def new_b2():
-        return [ik.occluded_tris(*call) for call in calls]
-
-    old_b2()
-    if not torch.equal(torch.cat(old_occ), torch.cat(new_b2())):
+    if not torch.equal(aa(b2)(), b2()):
         raise AssertionError("B2 over a VCM iteration: this tree's booleans "
                              "differ from the parent's")
-    t_old, t_new = in_turns(old_b2, new_b2)
-    h_old, h_new = in_turns(old_b2, new_b2, graph=False)
+    t_old, t_new = in_turns(aa(b2), b2)
     out["occluded_tris"] = {f"{MAIN_SCENE} {MAIN_SIZE}^2 VCM": {
-        "parent_launches": len(pieces), "launches": len(calls),
-        "parent_iteration_ms": t_old, "iteration_ms": t_new,
-        "parent_enqueued_ms": h_old, "enqueued_ms": h_new}}
-    print(f"[parent-ab] B2 per {MAIN_SCENE} {MAIN_SIZE}^2 VCM iteration: "
-          f"parent {len(pieces)} launches {t_old:.4f} ms, this tree "
-          f"{len(calls)} launches {t_new:.4f} ms on the device; enqueued "
-          f"from the host as the renderer calls them, parent {h_old:.4f} "
-          f"ms, this tree {h_new:.4f} ms (in turns, medians of "
-          f"{TIMING_REPS}); booleans equal")
+        "launches": len(calls), "parent_iteration_ms": t_old,
+        "iteration_ms": t_new}}
+    print(f"[parent-ab] B2 (A/A) per {MAIN_SCENE} {MAIN_SIZE}^2 VCM "
+          f"iteration, {len(calls)} launches: parent {t_old:.4f} ms, this "
+          f"tree {t_new:.4f} ms (in turns, medians of {TIMING_REPS}); "
+          f"booleans equal")
 
-    # B3 on the PPM main shape; the parent reads [P, 3] arrays
+    # B3 (A/A) on the PPM main shape
     grid, q, qn, r, u, valid = ppm_gather_inputs(dev)
     starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u, valid)
     r2 = torch.square(torch.as_tensor(r, dtype=torch.float32, device=dev))
-    ppos, ppow, pdir = (a.contiguous() for a in (
-        grid.position, grid.power, grid.direction))
-    g_old = torch.empty_like(q)
-
-    def old_b3():
-        check(lib.gather_photons_tiled(
-            *(a.data_ptr() for a in (starts, lens, weights, r2, q, qn, ppos,
-                                     ppow, pdir)),
-            starts.shape[0], 1, g_old.data_ptr(), stream()),
-            "gather_photons_tiled")
-
     args = (starts, lens, weights, rows, r2, q, qn, grid, True)
-    old_b3()
-    g_new = gk.gather_photons_tiled_kernel(*args)
+
+    def b3():
+        return gk.gather_photons_tiled_kernel(*args)
+
+    g_old, g_new = aa(b3)(), b3()
     scale = float(g_old.abs().max())
     if not torch.allclose(g_new, g_old, rtol=GATHER_RTOL,
                           atol=GATHER_ATOL_REL * scale):
         raise AssertionError("B3 on the PPM main shape: this tree's sums "
                              "differ from the parent's")
-    t_old, t_new = in_turns(old_b3,
-                            lambda: gk.gather_photons_tiled_kernel(*args))
+    t_old, t_new = in_turns(aa(b3), b3)
     out["gather_photons_tiled"] = {"parent_ms": t_old, "ms": t_new}
-    print(f"[parent-ab] B3 {MAIN_SCENE} {MAIN_SIZE}^2 PPM: parent "
+    print(f"[parent-ab] B3 (A/A) {MAIN_SCENE} {MAIN_SIZE}^2 PPM: parent "
           f"{t_old:.4f} ms, this tree {t_new:.4f} ms (in turns, medians of "
           f"{TIMING_REPS})")
 
+    # B4 (A/A) on every merge round of one VCM+VM iteration
     cfg, rounds = vcm_merge_inputs(dev)
     acc = out["merge_vertices_tiled"] = {"parent_iteration_ms": 0.0,
                                          "iteration_ms": 0.0}
     for k in rounds:
-        _, args, _, _ = vk.merge_tables(
+        _, margs, _, _ = vk.merge_tables(
             k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
             k["cam_dVM"], k["active"], k["radius_sq"], k["mis_vc_w"],
             k["u_rows"], k["depth1"])
-        starts, lens, weights, rows, scal, qtab, g = args
-        o1 = torch.empty((qtab.shape[0], 3), device=dev)
-        o2 = torch.empty_like(o1)
-        part = torch.empty((2, vk.SLOT_GROUPS) + tuple(o1.shape), device=dev)
 
-        def old():
-            check(lib.merge_vertices_tiled(
-                *(a.data_ptr() for a in (
-                    starts, lens, weights, rows, scal, qtab, g.packed,
-                    g.offsets, g.origin, g.cell_size)),
-                g.resolution, starts.shape[0], vk.SLOT_GROUPS,
-                part.data_ptr(), o1.data_ptr(), o2.data_ptr(), stream()),
-                "merge_vertices_tiled")
+        def b4(margs=margs):
+            return vk.merge_vertices_tiled_kernel(*margs)
 
-        old()
-        new1, new2 = vk.merge_vertices_tiled_kernel(*args)
-        for a, b in ((o1, new1), (o2, new2)):
+        for a, b in zip(aa(b4)(), b4()):
             scale = float(a.abs().max())
             if not torch.allclose(b, a, rtol=VM_RTOL,
                                   atol=VM_ATOL_REL * scale):
                 raise AssertionError(f"B4 bounce {k['depth1']}: this tree's "
                                      "sums differ from the parent's")
-        t_old, t_new = in_turns(old,
-                                lambda: vk.merge_vertices_tiled_kernel(*args))
+        t_old, t_new = in_turns(aa(b4), b4)
         acc["parent_iteration_ms"] += t_old
         acc["iteration_ms"] += t_new
         if k["depth1"] == 2:
             acc.update(parent_ms=t_old, ms=t_new)
-        print(f"[parent-ab] B4 bounce {k['depth1']}: parent {t_old:.4f} ms, "
-              f"this tree {t_new:.4f} ms (in turns, medians of "
-              f"{TIMING_REPS})")
+        print(f"[parent-ab] B4 (A/A) bounce {k['depth1']}: parent "
+              f"{t_old:.4f} ms, this tree {t_new:.4f} ms (in turns, medians "
+              f"of {TIMING_REPS})")
 
+    # B5 (A/A) on every call of one Atrium and one Conference iteration
     for name, size in (("Atrium", ATRIUM_SIZE),
                        ("Conference", CONFERENCE_SIZE)):
         scene, cam = get_scene_by_name(name, dev)
         bvh = scene.bvh
         calls = pt_traversal_calls(scene, cam, size)
-        for kname, entry, kcalls in (("traverse", "bvh_closest", calls[0]),
-                                     ("traverse_any", "bvh_any", calls[1])):
+        for kname, kcalls in (("traverse", calls[0]),
+                              ("traverse_any", calls[1])):
             acc = out.setdefault(kname, {}).setdefault(
                 f"{name} {size}^2", {"parent_iteration_ms": 0.0,
                                      "iteration_ms": 0.0})
             fn = getattr(bk, kname)
             for i, (o, d, tmin, tmax) in enumerate(kcalls):
-                n = o.shape[0]
-                outs = ((torch.empty(n, device=dev),
-                         torch.empty(n, dtype=torch.int32, device=dev),
-                         torch.empty(n, device=dev),
-                         torch.empty(n, device=dev))
-                        if kname == "traverse" else ()) + (
-                    torch.empty(n, dtype=torch.bool, device=dev),)
+                def b5(o=o, d=d, tmin=tmin, tmax=tmax):
+                    got = fn(bvh, o, d, tmin, tmax)
+                    return got if kname == "traverse" else (got,)
 
-                def old():
-                    check(getattr(lib, entry)(
-                        bvh.rows.data_ptr(), bvh.rows.shape[0],
-                        bvh.root_code, bvh.leaf_size, o.data_ptr(),
-                        d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-                        *(a.data_ptr() for a in outs), stream()), entry)
-
-                old()
-                got = fn(bvh, o, d, tmin, tmax)
-                got = got if kname == "traverse" else (got,)
-                if any(_bits_differ(a, b) for a, b in zip(outs, got)):
+                if any(_bits_differ(a, b) for a, b in zip(aa(b5)(), b5())):
                     raise AssertionError(f"B5 {kname} {name} segment {i}: "
                                          "this tree differs from the parent")
-                t_old, t_new = in_turns(
-                    old, lambda: fn(bvh, o, d, tmin, tmax))
+                t_old, t_new = in_turns(aa(b5), b5)
                 acc["parent_iteration_ms"] += t_old
                 acc["iteration_ms"] += t_new
                 if i == 0:
                     acc.update(parent_ms=t_old, ms=t_new)
-                print(f"[parent-ab] B5 {kname} {name} {size}^2 segment {i}: "
-                      f"parent {t_old:.4f} ms, this tree {t_new:.4f} ms")
+                print(f"[parent-ab] B5 (A/A) {kname} {name} {size}^2 segment "
+                      f"{i}: parent {t_old:.4f} ms, this tree {t_new:.4f} ms")
     for k, v in out.items():
         print(f"[parent-ab] {k}: {json.dumps(v)}")
     return out
@@ -1914,8 +2024,8 @@ def timed(tag: str, fn, *args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="an unpacked earlier tree: time its B2-B5 in turns "
-                         "with this tree's (phase parent-ab)")
+                    help="the unpacked parent tree: time its kernels in "
+                         "turns with this tree's (phase parent-ab)")
     args = ap.parse_args()
     name = phase_device()   # first: no CUDA device, no result
     dev = torch.device("cuda", 0)

@@ -1,27 +1,45 @@
-"""Design variants of the port's kernels B2 and B3, timed on the card in
-turns with the kernels as built, on the main paths' inputs.
+"""Design variants of the port's kernels B1, B2 and B3, timed on the card
+in turns with the kernels as built, on the main paths' inputs.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
     python3 kernel_variants.py
 
-* B2 (``csrc/intersect.cu``): each variant is the source with one text
-  substitution, built with the port's nvcc flags into
-  ``_chip_tree/variants/``: ``rcp_rn`` takes 1/det as ``__frcp_rn(det)``,
-  ``fast_div`` as ``__fdividef(1.0f, det)`` (not IEEE: it times the
-  division path and counts the booleans it changes), ``block128`` gives a
-  block 128 lanes, ``one_group`` compacts one group of 256 lanes per
-  block whatever the launch size. Each runs every shadow-ray call of one
-  CornellSmall
-  512^2 VCM iteration (summed) and the 262,144 random rays of
-  ``chip_smoke.py``'s table shape. Then one kernel compares
-  ``__frcp_rn(x)`` with ``1.0f / x`` on all 2^32 float32 bit patterns.
+* B1 and B2 (``csrc/intersect.cu``): each variant is the source with a
+  few text substitutions, built with the port's nvcc flags into
+  ``_chip_tree/variants/`` and launched through the port's own wrappers
+  (``chip_smoke.kernels_of``):
+  - ``two_rays``: a B1 thread tests two live rays against each staged
+    triangle; ``two_rays_block128`` the same with 128-thread blocks;
+  - ``one_group``: a block compacts one group of 256 lanes whatever the
+    launch size (the built kernels take up to 8); ``b1_min4`` and
+    ``b1_min8``: B1 takes as many groups as keep 4 or 8 blocks per SM
+    (the built kernel 16, B2 4);
+  - ``unroll4``: B1's triangle loop unrolled by 4 (the built kernel 2);
+  - ``div_if_ok``: 1/det computed only where |det| > 1e-12, behind a
+    branch (the built kernels divide on every pair and then select);
+  - ``block128``: 128-lane blocks and groups;
+  - ``double_buffer``: B1 stages 256-triangle chunks with cp.async into
+    two buffers, the next chunk's copy overlapping the current one's tests;
+    ``chunk256``: 256-triangle chunks in one buffer (its yardstick);
+  - ``u_reject``: a pair whose u is certainly negative (num_u and det of
+    opposite signs, det finite, |num_u| >= 1e-6 so that num_u / det
+    cannot underflow to -0.0) is rejected before the division;
+  - ``rcp_rn``: 1/det as ``__frcp_rn(det)``; ``fast_div`` as
+    ``__fdividef(1.0f, det)`` (not IEEE: it times the division and counts
+    the results it changes).
+  B1 runs every closest-hit call of one CornellSmall 512^2 PPM iteration
+  (summed), the 262,144 random rays of ``chip_smoke.py``'s table shape and
+  the 4096-triangle soup; B2 every shadow-ray call of one VCM iteration
+  and the table shape. Each prints the results that differ from the plain
+  version. Then one kernel compares ``__frcp_rn(x)`` with ``1.0f / x`` on
+  all 2^32 float32 bit patterns.
 * B3 (``csrc/gather.cu``): the same library launched with 2, 4, 16 and
   32 slot groups per tile, against the built 8, at the PPM main shape.
 
-Prints one line per variant: its ms and the built kernel's, in turns
-(built, variant, variant, built; device time, medians of 20 replays of a
-CUDA graph of 10 calls, as ``chip_smoke.cuda_ms``).
+Prints one line per variant and shape: its ms and the built kernel's, in
+turns (built, variant, variant, built; device time, medians of 20 replays
+of a CUDA graph of 10 calls, as ``chip_smoke.cuda_ms``).
 """
 from __future__ import annotations
 
@@ -40,13 +58,41 @@ from oppositerenderer_tpu_torch.accel.intersect import dense_tables
 from oppositerenderer_tpu_torch.scene import get_scene_by_name
 
 OUT = Path(__file__).resolve().parent / "_chip_tree" / "variants"
-B2_VARIANTS = {
-    "rcp_rn": ("1.0f / det", "__frcp_rn(det)"),
-    "fast_div": ("1.0f / det", "__fdividef(1.0f, det)"),
-    "block128": ("constexpr int kBlock = 256;", "constexpr int kBlock = 128;"),
-    "one_group": ("constexpr int kOccGroups = 8;",
-                  "constexpr int kOccGroups = 1;"),
+_RCP_DET = "  const float rcp_det = 1.0f / det;\n"
+_INV_DET = "  const float inv_det = ok_det ? rcp_det : 0.0f;\n"
+_TRI_LOOP = "        for (int k = 0; k < cnt; ++k) {\n"
+VARIANTS = {
+    "two_rays": [("constexpr int kRaysPerThread = 1;",
+                  "constexpr int kRaysPerThread = 2;")],
+    "two_rays_block128": [
+        ("constexpr int kRaysPerThread = 1;",
+         "constexpr int kRaysPerThread = 2;"),
+        ("constexpr int kBlock = 256;", "constexpr int kBlock = 128;")],
+    "one_group": [("constexpr int kGroups = 8;", "constexpr int kGroups = 1;")],
+    "b1_min4": [("constexpr int kTriMinBlocks = 16;",
+                 "constexpr int kTriMinBlocks = 4;")],
+    "b1_min8": [("constexpr int kTriMinBlocks = 16;",
+                 "constexpr int kTriMinBlocks = 8;")],
+    "unroll4": [("#pragma unroll 2\n" + _TRI_LOOP,
+                 "#pragma unroll 4\n" + _TRI_LOOP)],
+    "div_if_ok": [(_RCP_DET + _INV_DET,
+                   "  const float inv_det = ok_det ? 1.0f / det : 0.0f;\n")],
+    "block128": [("constexpr int kBlock = 256;", "constexpr int kBlock = 128;")],
+    "double_buffer": [
+        ("constexpr int kTriChunk = 512;", "constexpr int kTriChunk = 256;"),
+        ("constexpr int kTriStages = 1;", "constexpr int kTriStages = 2;")],
+    "chunk256": [("constexpr int kTriChunk = 512;",
+                  "constexpr int kTriChunk = 256;")],
+    "u_reject": [(_RCP_DET,
+                  "  if (fabsf(det) <= 3.402823466e38f && fabsf(num_u) >= "
+                  "1e-6f &&\n      (num_u < 0.0f) != (det < 0.0f))\n"
+                  "    return false;\n" + _RCP_DET)],
+    "rcp_rn": [("1.0f / det", "__frcp_rn(det)")],
+    "fast_div": [("1.0f / det", "__fdividef(1.0f, det)")],
 }
+# variants that change only B1's code: not timed on B2
+B1_ONLY = {"two_rays", "two_rays_block128", "b1_min4", "b1_min8", "unroll4",
+           "double_buffer", "chunk256"}
 RCP_CHECK = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,15 +115,19 @@ extern "C" int rcp_mismatches(unsigned long long* bad, cudaStream_t s) {
 
 
 def build_variants() -> dict:
-    """Every B2 variant's library and the reciprocal check's, built by the
+    """Every variant's library and the reciprocal check's, built by the
     port's nvcc flags, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     src = cuda_build.SOURCES[0].read_text()
     sources = {}
-    for name, (old, new) in B2_VARIANTS.items():
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        sources[name] = src.replace(old, new)
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} not in the "
+                                   "source")
+            text = text.replace(old, new)
+        sources[name] = text
     sources["rcp_check"] = RCP_CHECK
     for name, text in sources.items():
         (OUT / f"{name}.cu").write_text(text)
@@ -95,28 +145,28 @@ def build_variants() -> dict:
             lib.rcp_mismatches.argtypes = [ctypes.c_void_p] * 2
             lib.rcp_mismatches.restype = ctypes.c_int
         else:
-            lib.occluded_tris.argtypes = cuda_build.ENTRY_POINTS[
-                "occluded_tris"]
-            lib.occluded_tris.restype = ctypes.c_int
+            for entry in ("closest_hit_tris", "occluded_tris"):
+                getattr(lib, entry).argtypes = cuda_build.ENTRY_POINTS[entry]
+                getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def b2_caller(lib, calls):
-    """A function launching ``lib``'s B2 on every call, and its outputs."""
-    outs = [torch.empty(c[0].shape[0], dtype=torch.bool, device=c[0].device)
-            for c in calls]
-
+def caller(fn, calls, lib=None):
+    """A function calling wrapper ``fn`` on every call (launching ``lib``'s
+    kernels, if given), returning its outputs as one tuple of tensors."""
     def run():
-        for (o, d, tmin, tmax, occ), res in zip(calls, outs):
-            rc = lib.occluded_tris(
-                o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                occ.data_ptr(), o.shape[0], occ.shape[0], res.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"variant launch failed: cudaError {rc}")
-        return outs
-    return run
+        outs = [fn(*c) for c in calls]
+        return tuple(x for out in outs
+                     for x in (out if isinstance(out, tuple) else (out,)))
+
+    if lib is None:
+        return run
+
+    def run_lib():
+        with cs.kernels_of(lib):
+            return run()
+    return run_lib
 
 
 def main() -> int:
@@ -135,23 +185,39 @@ def main() -> int:
     print(f"[variants] __frcp_rn(x) against 1.0f / x on all 2^32 float32 "
           f"bit patterns: {int(bad)} differ (NaN against NaN counts equal)")
 
-    _, vcm_calls = cs.vcm_shadow_calls(dev)
     scene, _ = get_scene_by_name(cs.MAIN_SCENE, dev)
-    table = [(*cs._rays(cs.MAIN_SIZE ** 2, 100, scene.aabb_min.tolist(),
-                        scene.aabb_max.tolist(), dev), dense_tables(scene)[1])]
-    for label, calls in (("VCM iteration", vcm_calls),
-                         ("table shape", table)):
-        built = b2_caller(cuda_build.library(), calls)
-        want = [ik.occluded_tris_plain(*c) for c in calls]
-        for name in B2_VARIANTS:
-            run = b2_caller(libs[name], calls)
+    tris, occ = dense_tables(scene)
+    table_rays = cs._rays(cs.MAIN_SIZE ** 2, 100, scene.aabb_min.tolist(),
+                          scene.aabb_max.tolist(), dev)
+    soup = (*cs._rays(cs.MAIN_SIZE ** 2, 102, *cs.SOUP_BOX, dev),
+            ik.triangle_records(cs.soup_tri9(dev)))
+    shapes = [
+        ("B1", "PPM iteration", ik.closest_hit_tris, ik.closest_hit_tris_plain,
+         cs.closest_hit_calls(dev, "PPM")),
+        ("B1", "table shape", ik.closest_hit_tris, ik.closest_hit_tris_plain,
+         [(*table_rays, tris)]),
+        ("B1", "soup4096", ik.closest_hit_tris, ik.closest_hit_tris_plain,
+         [soup]),
+        ("B2", "VCM iteration", ik.occluded_tris, ik.occluded_tris_plain,
+         cs.vcm_shadow_calls(dev)[1]),
+        ("B2", "table shape", ik.occluded_tris, ik.occluded_tris_plain,
+         [(*table_rays, occ)]),
+    ]
+    for kernel, label, fn, plain, calls in shapes:
+        want = caller(plain, calls)()
+        built = caller(fn, calls)
+        for name in VARIANTS:
+            if kernel == "B2" and name in B1_ONLY:
+                continue
+            run = caller(fn, calls, libs[name])
             got = run()
             torch.cuda.synchronize()
-            differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+            differ = sum(cs._bits_differ(g, w) for g, w in zip(got, want))
             t_built, t_var = cs.in_turns(built, run)
-            print(f"[variants] B2 {label} ({len(calls)} launches): built "
-                  f"{t_built:.4f} ms, {name} {t_var:.4f} ms; booleans "
-                  f"differing from the plain version: {differ}")
+            print(f"[variants] {kernel} {label} ({len(calls)} launches): "
+                  f"built {t_built:.4f} ms, {name} {t_var:.4f} ms "
+                  f"({t_var / t_built:.3f}x); results differing from the "
+                  f"plain version: {differ}")
 
     grid, q, qn, r, u, valid = cs.ppm_gather_inputs(dev)
     starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u, valid)

@@ -25,7 +25,7 @@ from ..core.math import Tensor, cross, dot, normalize
 from ..scene.types import EMITTER, Scene
 from .bvh_kernels import traverse, traverse_any
 from .intersect_kernels import (BIG, closest_hit_tris, occluded_tris,
-                                occluder_records, tri9_from_geometry)
+                                tri9_from_geometry, triangle_records)
 
 
 @dataclasses.dataclass
@@ -121,16 +121,16 @@ def occluder_mask(scene: Scene, prim_mat: Tensor) -> Tensor:
 
 
 def dense_tables(scene: Scene) -> tuple[Tensor, Tensor]:
-    """The dense route's triangle tables: B1's ``tri9`` [9, T] and B2's
-    occluder records [T_occ, 12] (the triangles that are no emitter). Built
-    once per scene, and again only if its geometry or materials object is
-    replaced."""
+    """The dense route's triangle record tables (``triangle_records``):
+    B1's [T, 12], every triangle, and B2's [T_occ, 12], the triangles that
+    are no emitter. Built once per scene, and again only if its geometry
+    or materials object is replaced."""
     g, m = scene.geometry, scene.materials
     cache = scene.dense_cache
     if cache is None or cache[0] is not g or cache[1] is not m:
         tri9 = tri9_from_geometry(g)
-        cache = (g, m, tri9,
-                 occluder_records(tri9, occluder_mask(scene, g.tri_mat)))
+        cache = (g, m, triangle_records(tri9),
+                 triangle_records(tri9, occluder_mask(scene, g.tri_mat)))
         scene.dense_cache = cache
     return cache[2], cache[3]
 

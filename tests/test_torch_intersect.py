@@ -101,32 +101,43 @@ def test_occluded_matches_jax(name, backend):
     got = occluded(tscene, *ta).numpy()
     assert 0.1 < want.mean() < 0.9
     np.testing.assert_array_equal(got, want)
-    tri9, occ = dense_tables(tscene)
+    tris, occ = dense_tables(tscene)
     assert dense_tables(tscene)[1] is occ          # built once per scene
     g = tscene.geometry
     mask = occluder_mask(tscene, g.tri_mat)
-    assert occ.shape == (int(mask.sum()), ik.OCC_RECORD)
-    *_, valid = ik._mt_terms(*ta, tri9)
+    assert occ.shape == (int(mask.sum()), ik.TRI_RECORD)
+    *_, valid = ik._mt_terms(*ta, tris)
     assert torch.equal(ik.occluded_tris_plain(*ta, occ),
                        torch.any(valid & mask[None, :], dim=1))
 
 
 def test_occluder_table_is_rebuilt_for_new_geometry():
     """dataclasses.replace does not carry the cached tables to a scene
-    with other geometry; the table holds the non-emitters' triangles."""
+    with other geometry. B1's record table holds every triangle, B2's the
+    non-emitters', each as tri9's columns in index order with zero
+    padding, 16-byte aligned."""
     import dataclasses
     tscene, _ = get_scene_by_name("Cornell", "cpu")
-    tri9, occ = dense_tables(tscene)
+    tris, occ = dense_tables(tscene)
     g = tscene.geometry
+    tri9 = ik.tri9_from_geometry(g)
     mask = occluder_mask(tscene, g.tri_mat)
     assert 0 < occ.shape[0] < g.n_triangles
-    np.testing.assert_array_equal(
-        occ.numpy()[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]], tri9.T[mask].numpy())
-    assert not occ[:, [3, 7, 11]].any()
+    assert tris.shape == (g.n_triangles, ik.TRI_RECORD)
+    cols = [0, 1, 2, 4, 5, 6, 8, 9, 10]
+    np.testing.assert_array_equal(tris.numpy()[:, cols], tri9.T.numpy())
+    np.testing.assert_array_equal(occ.numpy()[:, cols], tri9.T[mask].numpy())
+    for table in (tris, occ):
+        assert not table[:, [3, 7, 11]].any()
+        assert table.is_contiguous() and table.data_ptr() % 16 == 0
     moved = dataclasses.replace(g, tri_v0=g.tri_v0 + 1.0)
     other = dataclasses.replace(tscene, geometry=moved)
-    assert torch.equal(dense_tables(other)[1][:, :3], occ[:, :3] + 1.0)
-    assert dense_tables(tscene)[1] is occ
+    new_tris, new_occ = dense_tables(other)
+    assert torch.equal(new_tris[:, :3], tris[:, :3] + 1.0)
+    assert torch.equal(new_tris[:, 4:], tris[:, 4:])
+    assert torch.equal(new_occ[:, :3], occ[:, :3] + 1.0)
+    again = dense_tables(tscene)
+    assert again[0] is tris and again[1] is occ
 
 
 @pytest.mark.parametrize("n", [131, 2000])
@@ -145,7 +156,7 @@ def test_plain_kernels_match_pallas_interpret(n):
     t, idx, u, v = (np.asarray(x) for x in jpk.closest_hit_tris(
         *ja, jtri9, interpret=True))
     tt, tidx, tu, tv = (x.numpy() for x in ik.closest_hit_tris_plain(
-        *ta, tri9))
+        *ta, ik.triangle_records(tri9)))
     assert tidx.dtype == np.int32 and tt.dtype == np.float32
     np.testing.assert_array_equal(tidx, idx)
     hit = idx >= 0
@@ -157,18 +168,86 @@ def test_plain_kernels_match_pallas_interpret(n):
     want = np.asarray(jpk.occluded_tris(*ja, jtri9,
                                         jnp.asarray(occ_mask.numpy()),
                                         interpret=True))
-    got = ik.occluded_tris_plain(*ta, ik.occluder_records(
+    got = ik.occluded_tris_plain(*ta, ik.triangle_records(
         tri9, occ_mask)).numpy()
     np.testing.assert_array_equal(got, want)
     assert not got[::10].any()
 
 
+def tie_table(i, j, n_tris=128, seed=7):
+    """[9, n_tris]: CornellSmall's 32 triangles, then small triangles far
+    outside its box, with triangle j a copy of triangle i."""
+    g = get_scene_by_name("CornellSmall", "cpu")[0].geometry
+    rng = np.random.default_rng(seed)
+    far = n_tris - g.n_triangles
+    tri9 = np.concatenate([ik.tri9_from_geometry(g).numpy(), np.concatenate([
+        rng.uniform(50.0, 60.0, (3, far)), rng.normal(0.0, 0.1, (6, far))])],
+        axis=1).astype(np.float32)
+    dup = tri9.copy()
+    dup[:, j] = tri9[:, i]
+    return tri9, dup
+
+
+def rays_at_triangle(tri9, i, n, seed):
+    """Rays from random points in CornellSmall's box to random points of
+    triangle i."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.2, 2.3, (n, 3)).astype(np.float32)
+    a, b = rng.uniform(0.05, 0.95, (2, n))
+    swap = a + b > 1.0
+    a, b = np.where(swap, 1.0 - a, a), np.where(swap, 1.0 - b, b)
+    target = (tri9[0:3, i][None] + a[:, None] * tri9[3:6, i][None]
+              + b[:, None] * tri9[6:9, i][None])
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (o, d, np.full(n, 1e-4, np.float32), np.full(n, 1e6, np.float32))
+
+
+@pytest.mark.parametrize("i,j", [(0, 1), (4, 31), (10, 70), (31, 127)])
+def test_equal_t_goes_to_the_lower_index(i, j):
+    """Triangle j is a copy of triangle i (pairs within and across the
+    TPU kernel's 64-triangle blocks): every ray that hits it gets index i
+    from the plain version, as from the TPU kernel, with the t, u and v
+    it gets when triangle j is elsewhere."""
+    tri9, dup = tie_table(i, j)
+    rays = rays_at_triangle(tri9, i, 512, seed=i + j)
+    ja, ta = both(*rays)
+    got = ik.closest_hit_tris_plain(*ta, ik.triangle_records(
+        torch.as_tensor(dup)))
+    alone = ik.closest_hit_tris_plain(*ta, ik.triangle_records(
+        torch.as_tensor(tri9)))
+    want = [np.asarray(x) for x in jpk.closest_hit_tris(
+        *ja, jnp.asarray(dup), interpret=True)]
+    idx = got[1].numpy()
+    np.testing.assert_array_equal(idx, want[1])
+    assert (idx == i).sum() > 100 and not (idx == j).any()
+    for a, b in zip(got, alone):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["equal", "below", "zero"])
+def test_dead_lanes_miss(kind):
+    """A lane with tmax <= tmin returns (1e30, -1, 0, 0) from the closest
+    hit and False from the any hit."""
+    tris, occ = dense_tables(get_scene_by_name("CornellSmall", "cpu")[0])
+    o, d, tmin, tmax = (torch.as_tensor(a) for a in random_rays(300, seed=8))
+    dead = torch.arange(300) % 3 == 0
+    tmin = torch.where(dead & (kind == "zero"), 0.0, tmin)
+    tmax = torch.where(dead, {"equal": tmin, "below": tmin - 1.0,
+                              "zero": torch.zeros_like(tmin)}[kind], tmax)
+    t, idx, u, v = ik.closest_hit_tris(o, d, tmin, tmax, tris)
+    assert (t[dead] == ik.BIG).all() and (idx[dead] == -1).all()
+    assert (u[dead] == 0).all() and (v[dead] == 0).all()
+    assert (idx[~dead] >= 0).float().mean() > 0.5   # the box is open
+    assert not ik.occluded_tris(o, d, tmin, tmax, occ)[dead].any()
+
+
 def test_chunking_does_not_change_results():
     tscene, _ = get_scene_by_name("CornellSmall", "cpu")
-    tri9, occ = dense_tables(tscene)
+    tris, occ = dense_tables(tscene)
     ta = [torch.as_tensor(a) for a in random_rays(1000, seed=4, tmax_scale=2)]
-    whole = ik.closest_hit_tris_plain(*ta, tri9)
-    chunked = ik.closest_hit_tris_plain(*ta, tri9, chunk_size=97)
+    whole = ik.closest_hit_tris_plain(*ta, tris)
+    chunked = ik.closest_hit_tris_plain(*ta, tris, chunk_size=97)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
     assert torch.equal(ik.occluded_tris_plain(*ta, occ),

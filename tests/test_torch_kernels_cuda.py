@@ -9,7 +9,8 @@ Run them on such a machine with
 not need.)
 The library is built with --fmad=false, so the intersection kernels (B1,
 B2) and the BVH traversal (B5) and their plain versions must agree bit
-for bit, B2 and B5 also on inputs whose lanes are all dead or all live,
+for bit, B1, B2 and B5 also on inputs whose lanes are all dead or all
+live, B1 on equal t too (the lower index wins),
 and B5's live-lane compaction must find the lanes torch.nonzero finds.
 The gather kernel (B3) and the vertex-merge kernel (B4) sum the same terms
 as their plain versions in another order (a tile's slots in groups):
@@ -62,12 +63,12 @@ def rays(n, seed, dev):
 @pytest.mark.parametrize("name", ["CornellSmall", "CornellSmallLargeSphere"])
 def test_kernels_equal_plain_versions(cuda, name, n):
     scene, _ = get_scene_by_name(name, cuda)
-    tri9, occ = dense_tables(scene)
+    tris, occ = dense_tables(scene)
     args = rays(n, n, cuda)
     before = ik.closest_hit_tris.launches
-    got = ik.closest_hit_tris(*args, tri9)
+    got = ik.closest_hit_tris(*args, tris)
     assert ik.closest_hit_tris.launches == before + 1
-    want = ik.closest_hit_tris_plain(*args, tri9)
+    want = ik.closest_hit_tris_plain(*args, tris)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not bool((got[1][::11] >= 0).any())
@@ -77,23 +78,79 @@ def test_kernels_equal_plain_versions(cuda, name, n):
     assert ik.occluded_tris.launches == before + 1
 
 
+def soup(T, seed, dev):
+    """[9, T]: T random triangles in a 10-unit box (chip_smoke's soup)."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.concatenate([
+        rng.uniform(0.0, 10.0, (T, 3)).T, rng.normal(0.0, 0.5, (T, 3)).T,
+        rng.normal(0.0, 0.5, (T, 3)).T]).astype(np.float32), device=dev)
+
+
+def lane_rays(n, seed, kind, dev):
+    """chip_smoke's random rays in the soup's box: mixed, all dead or all
+    live lanes."""
+    rays = chip_smoke._rays(n, seed, [0.0] * 3, [10.0] * 3, dev)
+    return rays if kind == "mixed" else chip_smoke.dead_or_live(
+        rays, kind == "all live")
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all dead", "all live"])
+@pytest.mark.parametrize("T", [0, 1, 32, 600, 4096])
+def test_closest_kernel_on_dead_live_and_mixed_lanes(cuda, T, kind):
+    """B1 bit for bit against its plain version on tables of 0 to 4096
+    triangles (600 and 4096: more than one staged chunk), with every lane
+    dead, every lane live, or a mix; dead lanes get (1e30, -1, 0, 0)."""
+    tris = ik.triangle_records(soup(T, T, cuda))
+    o, d, tmin, tmax = lane_rays(70001, T + 1, kind, cuda)
+    got = ik.closest_hit_tris(o, d, tmin, tmax, tris)
+    want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tris)
+    for a, b in zip(got, want):
+        assert chip_smoke._bits_differ(a, b) == 0
+    dead = ~(tmax > tmin)
+    assert bool((got[0][dead] == ik.BIG).all())
+    assert bool((got[1][dead] == -1).all())
+    assert not bool(got[2][dead].any()) and not bool(got[3][dead].any())
+    if T >= 32 and kind != "all dead":
+        assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.parametrize("i,j,T", [(0, 1, 32), (5, 31, 32), (3, 600, 700),
+                                   (511, 512, 1024)])
+def test_closest_kernel_gives_equal_t_to_the_lower_index(cuda, i, j, T):
+    """Triangle j a copy of triangle i, within a staged chunk and across
+    chunks: the kernel equals its plain version bit for bit, every ray
+    that hits the pair gets index i, and none gets j."""
+    tri9 = soup(T, 17, cuda)
+    tri9[:, j] = tri9[:, i]
+    n = 65536
+    rng = np.random.default_rng(i + j)
+    o = torch.as_tensor(rng.uniform(0.0, 10.0, (n, 3)).astype(np.float32),
+                        device=cuda)
+    a, b = (torch.as_tensor(x.astype(np.float32), device=cuda)
+            for x in rng.uniform(0.05, 0.45, (2, n)))
+    target = (tri9[0:3, i] + a[:, None] * tri9[3:6, i]
+              + b[:, None] * tri9[6:9, i])
+    d = target - o
+    d = (d / torch.linalg.norm(d, dim=1, keepdim=True)).contiguous()
+    tmin = torch.full((n,), 1e-4, device=cuda)
+    tmax = torch.full((n,), 1e30, device=cuda)
+    tris = ik.triangle_records(tri9)
+    got = ik.closest_hit_tris(o, d, tmin, tmax, tris)
+    want = ik.closest_hit_tris_plain(o, d, tmin, tmax, tris)
+    for x, y in zip(got, want):
+        assert chip_smoke._bits_differ(x, y) == 0
+    assert int((got[1] == i).sum()) > 1000
+    assert not bool((got[1] == j).any())
+
+
 @pytest.mark.parametrize("kind", ["mixed", "all dead", "all live"])
 @pytest.mark.parametrize("T", [0, 1, 32, 4096])
 def test_occluded_kernel_on_dead_live_and_mixed_lanes(cuda, T, kind):
     """B2 bit for bit against its plain version on occluder tables of 0 to
     4096 triangles (more than one staged chunk), with every lane dead,
     every lane live, or a mix."""
-    rng = np.random.default_rng(T)
-    tri9 = torch.as_tensor(np.concatenate([
-        rng.uniform(0.0, 10.0, (T, 3)).T, rng.normal(0.0, 0.5, (T, 3)).T,
-        rng.normal(0.0, 0.5, (T, 3)).T]).astype(np.float32), device=cuda)
-    occ = ik.occluder_records(tri9, torch.ones(T, dtype=torch.bool,
-                                               device=cuda))
-    o, d, tmin, tmax = chip_smoke._rays(70001, T + 1, [0.0] * 3, [10.0] * 3,
-                                        cuda)
-    if kind != "mixed":
-        o, d, tmin, tmax = chip_smoke.dead_or_live((o, d, tmin, tmax),
-                                                   kind == "all live")
+    occ = ik.triangle_records(soup(T, T, cuda))
+    o, d, tmin, tmax = lane_rays(70001, T + 1, kind, cuda)
     got = ik.occluded_tris(o, d, tmin, tmax, occ)
     assert torch.equal(got, ik.occluded_tris_plain(o, d, tmin, tmax, occ))
     if T == 0 or kind == "all dead":
@@ -105,16 +162,20 @@ def test_occluded_kernel_on_dead_live_and_mixed_lanes(cuda, T, kind):
 
 def test_wrapper_rejects_bad_inputs(cuda):
     scene, _ = get_scene_by_name("CornellSmall", cuda)
-    tri9, occ = dense_tables(scene)
+    tris, occ = dense_tables(scene)
     o, d, tmin, tmax = rays(64, 0, cuda)
     with pytest.raises(ValueError, match="float32"):
-        ik.closest_hit_tris(o.double(), d, tmin, tmax, tri9)
+        ik.closest_hit_tris(o.double(), d, tmin, tmax, tris)
     with pytest.raises(ValueError, match="contiguous"):
-        ik.closest_hit_tris(o, d, tmin, tmax, tri9.T.contiguous().T)
-    shifted = torch.zeros(occ.numel() + 1, device=cuda)[1:].reshape(
-        occ.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        ik.occluded_tris(o, d, tmin, tmax, shifted)
+        ik.closest_hit_tris(o, d, tmin, tmax, tris.T.contiguous().T)
+    with pytest.raises(ValueError, match="shape"):
+        ik.closest_hit_tris(o, d, tmin, tmax, ik.tri9_from_geometry(
+            scene.geometry))
+    for table, fn in ((tris, ik.closest_hit_tris), (occ, ik.occluded_tris)):
+        shifted = torch.zeros(table.numel() + 1, device=cuda)[1:].reshape(
+            table.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(o, d, tmin, tmax, shifted)
     with pytest.raises(ValueError, match="shape"):
         ik.occluded_tris(o, d, tmin, tmax, occ[:, :9].contiguous())
 
