@@ -81,6 +81,16 @@ and the script exits non-zero without printing the result line:
                  RenderConfig field at its default, seed 0: one warm-up
                  render, then 3 timed reps of 5 iterations. Each rep must
                  launch B3 5 times, B1 5 x (9 + 7) and B2 5 x 4 times.
+8a. media-parity - one PPM iteration of CornellSmall at 64^2, seed 7, in
+                 the JAX package's test medium (sigma_s 0.15, sigma_a 0.02,
+                 box [0, 2.5]^3, which covers the scene) on the card and on
+                 the CPU: ppm-parity's pixel bar, and the volumetric photons
+                 stored within 0.1%.
+8b. media-main - ppm-main in that medium, in ppm-main's protocol and with
+                 its launch counts (the volume gather is the budgeted gather
+                 in torch: no kernel); prints ms/iter, the volumetric
+                 photons stored and the peak memory, and holds B3 against
+                 its plain version on the path's surface gather.
 9. vcm-goldens - VCM at the golden VCM configuration (2 iterations, L=6,
                  seed 7) on the eight scenes against the ``*__vcm`` goldens
                  at PT's bar.
@@ -93,6 +103,19 @@ and the script exits non-zero without printing the result line:
                  for all its shadow rays). Then one profiled iteration.
 12. vcm-vm-main - the same with vertex merging, 2 iterations a rep; B4 must
                  launch 2 x 10 times too.
+12a. grad-parity - gradients of the mean image of one 32^2 iteration on
+                 the card against the CPU port's: PT kd of material 0 (a
+                 wall) and emission scale (rel 1e-3), PPM kd (the tile
+                 gather: B3's zero gradient), VCM kd (L = 4, continuation
+                 pinned to 1) and VCM+VM emission scale (the tile merge:
+                 B4's zero gradient), rel 5e-3.
+12b. grad-main - loss and gradient with respect to kd and the emission
+                 scale at 512^2: PT, PPM (1<<20 photons) and VCM (L = 10);
+                 forward + backward seconds and peak memory after one
+                 warm-up. Then three steps of gradient descent (Polyak
+                 step) on the wall's kd toward a target rendered at 0.8 kd
+                 with the same seed, PT 512^2: the loss must fall at every
+                 step.
 13. bvh-goldens - the eight Cornell scenes with a BVH attached, at the golden
                  PT configuration, against the ``*__pt`` goldens at phase
                  4's bar; B5 runs, B1/B2 do not.
@@ -107,7 +130,7 @@ and the script exits non-zero without printing the result line:
                  1024x1024, 2 iterations a rep.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 11, 12, 15 and 16), errors, times and bounds; the
+the main phases (5, 8, 8b, 11, 12, 15 and 16), errors, times and bounds; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -176,6 +199,15 @@ LAUNCHES_PER_SAMPLE = 10   # cuda_ms: calls per timed sample of a kernel
 PPM_MAIN_PHOTONS = 1 << 20
 PPM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
 PLAIN_GATHER_REPS = 3
+# phases media-*: JAX's test medium, and the parity bar of ppm-parity
+MEDIUM_SIGMA_S, MEDIUM_SIGMA_A, MEDIUM_BOX = 0.15, 0.02, 2.5
+MEDIA_STORED_RTOL = 1e-3
+# phases grad-*: the gradient agreement of the card with the CPU port
+GRAD_PARITY_SIZE = 32
+GRAD_RTOL = {"pt": 1e-3, "ppm": 5e-3, "vcm": 5e-3}
+GRAD_R2 = 0.003
+GRAD_DESCENT_STEPS = 3
+GRAD_TARGET_SCALE = 0.8
 
 # VCM (bench.py:236-243): 5 iterations, and 2 with vertex merging
 VCM_MAIN_ITERS = max(2, MAIN_ITERS // 4)
@@ -800,9 +832,21 @@ def gather_case(dev, n_photons=4096, n_tiles=2, radius=0.12, seed=0,
             torch.as_tensor(unit(n_tiles * 256), device=dev), radius)
 
 
-def ppm_gather_inputs(dev):
+def scene_medium(dev):
+    """The JAX package's test medium (tests/test_media.py:51-56): sigma_s
+    0.15, sigma_a 0.02 over [0, 2.5]^3, which covers all of CornellSmall,
+    as the reference's scene-covering AABInstance."""
+    from oppositerenderer_tpu_torch.scene import Medium
+    return Medium(sigma_s=torch.tensor(MEDIUM_SIGMA_S, device=dev),
+                  sigma_a=torch.tensor(MEDIUM_SIGMA_A, device=dev),
+                  aabb_min=torch.zeros(3, device=dev),
+                  aabb_max=torch.full((3,), MEDIUM_BOX, device=dev))
+
+
+def ppm_gather_inputs(dev, medium: bool = False):
     """The tile gather's inputs in one CornellSmall 512^2 PPM iteration
-    (iteration 0, seed 0, the bench's PPM configuration), recorded where
+    (iteration 0, seed 0, the bench's PPM configuration; with ``medium``,
+    in :func:`scene_medium`), recorded where
     ``integrators/ppm.render_iteration`` calls the gather: (grid,
     tile-ordered hitpoint positions and normals, radius, u_rows, found)."""
     from oppositerenderer_tpu_torch.integrators import ppm
@@ -810,6 +854,8 @@ def ppm_gather_inputs(dev):
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
 
     scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    if medium:
+        scene.medium = scene_medium(dev)
     r = Renderer(scene, cam, ppm_main_config(), seed=0)
     calls = []
     gather = ppm.gather_photons_tiled
@@ -1554,6 +1600,222 @@ def phase_ppm_main(dev) -> dict:
     return launches
 
 
+def phase_media_parity(dev) -> None:
+    """One PPM iteration in the medium at 64^2 on the card and on the CPU:
+    ppm-parity's pixel bar, and the volumetric photons stored."""
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    cfg = golden_ppm_config()
+    imgs, stored = [], []
+    for d in (dev, torch.device("cpu")):
+        scene, cam = get_scene_by_name(MAIN_SCENE, d)
+        scene.medium = scene_medium(d)
+        r = Renderer(scene, cam, cfg, seed=GOLDEN_SEED)
+        imgs.append(r.render(1).mean_radiance().cpu().numpy())
+        stored.append(r.metrics["volumetric_photons_stored"])
+    share, mean_err = image_agreement(*imgs)
+    stored_err = abs(stored[0] / max(stored[1], 1.0) - 1.0)
+    print(f"[media-parity] {MAIN_SCENE} in the medium, {cfg.width}x"
+          f"{cfg.height}, one iteration: {share:.4%} of the pixels within "
+          f"rtol {PPM_PIXEL_RTOL} of the CPU port's, image mean off by "
+          f"{mean_err:.2e}; volumetric photons stored {stored[0]:.0f} "
+          f"(CPU {stored[1]:.0f})")
+    if (not np.isfinite(imgs[0]).all() or share < PPM_MIN_AGREEING
+            or mean_err > PPM_MEAN_RTOL or stored[1] <= 0
+            or stored_err > MEDIA_STORED_RTOL):
+        raise AssertionError("PPM in a medium on the card differs from the "
+                             "CPU port")
+
+
+def phase_media_main(dev) -> tuple[dict, float]:
+    """PPM in the medium at the ppm-main configuration, in ppm-main's
+    protocol; B3 held against its plain version on the path's surface
+    gather. Returns (launches, B3's max |err| there)."""
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    cfg = ppm_main_config()
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    scene.medium = scene_medium(dev)
+    r = Renderer(scene, cam, cfg, seed=0)
+    t0 = time.perf_counter()
+    r.render(PPM_MAIN_ITERS)
+    print(f"[media-main] warm-up: {PPM_MAIN_ITERS} iterations in "
+          f"{time.perf_counter() - t0:.3f} s")
+    wrappers = (ik.closest_hit_tris, ik.occluded_tris,
+                gk.gather_photons_tiled)
+    # ppm-main's launches: the medium adds no kernel call (its volume
+    # gather is the budgeted gather in torch)
+    expected = {
+        "closest_hit_tris": PPM_MAIN_ITERS * (cfg.max_radiance_trace_depth
+                                              + cfg.max_photon_trace_depth),
+        "occluded_tris": PPM_MAIN_ITERS * cfg.ppm_direct_shadow_samples,
+        "gather_photons_tiled": PPM_MAIN_ITERS}
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches, times, film = timed_reps(r, PPM_MAIN_ITERS, wrappers,
+                                       expected, "media-main")
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = statistics.median(times)
+    per_it = {k: r.metrics[k] / PPM_MAIN_ITERS for k in (
+        "photons_stored", "volumetric_photons_stored", "photons_visited")}
+    print(f"[media-main] {MAIN_SCENE} {MAIN_SIZE}x{MAIN_SIZE} PPM in the "
+          f"medium (sigma_s {MEDIUM_SIGMA_S}, sigma_a {MEDIUM_SIGMA_A}, box "
+          f"[0, {MEDIUM_BOX}]^3), {cfg.photons_per_iteration} photons: "
+          f"ms/iter median {med / PPM_MAIN_ITERS * 1e3:.3f}, min "
+          f"{min(times) / PPM_MAIN_ITERS * 1e3:.3f}, spread "
+          f"{(max(times) - min(times)) / med:.4f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; per iteration: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in per_it.items())
+          + ", launches " + ", ".join(
+              f"{k} {c / (MAIN_REPS * PPM_MAIN_ITERS):g}"
+              for k, c in launches.items()))
+    img = film.mean_radiance()
+    if (tuple(img.shape) != (MAIN_SIZE, MAIN_SIZE, 3)
+            or not bool(torch.isfinite(img).all())
+            or float(img.mean()) <= 0.0):
+        raise AssertionError("PPM image in the medium is not finite and "
+                             "positive")
+    if per_it["volumetric_photons_stored"] <= 0:
+        raise AssertionError("the medium stored no volumetric photon")
+
+    # B3 on the path's surface gather, against its plain version
+    grid, q, qn, rad, u, valid = ppm_gather_inputs(dev, medium=True)
+    starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, rad, u,
+                                                        valid)
+    args = (starts, lens, weights, rows,
+            torch.square(torch.as_tensor(rad, dtype=torch.float32,
+                                         device=dev)), q, qn, grid, True)
+    got = gk.gather_photons_tiled_kernel(*args)
+    want = gk.gather_photons_tiled_plain(*args)
+    err = (got.double() - want.double()).abs()
+    scale = float(want.abs().max())
+    bad = int((err > GATHER_RTOL * want.double().abs()
+               + GATHER_ATOL_REL * scale).sum())
+    ms = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
+    print(f"[media-main] B3 on the medium path's surface gather: "
+          f"{q.shape[0]} queries, {int(grid.n_valid)} photons; max |err| "
+          f"{float(err.max()):.3g} (max |ref| {scale:.4g}), {bad} sums "
+          f"outside rtol {GATHER_RTOL} + {GATHER_ATOL_REL} max|ref|; kernel "
+          f"{ms:.4f} ms (median of {TIMING_REPS})")
+    if bad or scale <= 0.0:
+        raise AssertionError("B3 differs from its plain version on the "
+                             "medium path")
+    return launches, float(err.max())
+
+
+def grad_parity_cases():
+    """(label, tolerance key, config, parameter) of phase grad-parity at
+    32^2: PT kd and emission scale, PPM kd (the tile gather: B3's zero
+    gradient), VCM kd at L = 4 with the continuation pinned to 1, and
+    VCM+VM emission scale (the tile merge: B4's zero gradient)."""
+    from oppositerenderer_tpu_torch.config import RenderConfig, RenderMethod
+    base = dict(width=GRAD_PARITY_SIZE, height=GRAD_PARITY_SIZE)
+    vcm_kw = dict(base, vcm_max_path_length=4, render_method=RenderMethod.
+                  VCM_BIDIRECTIONAL_PATH_TRACING)
+    return [("PT kd", "pt", RenderConfig(**base), "kd"),
+            ("PT emission", "pt", RenderConfig(**base), "emission_scale"),
+            ("PPM kd", "ppm", RenderConfig(
+                **base, photons_per_iteration=1 << 14,
+                render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING),
+             "kd"),
+            ("VCM kd", "vcm", RenderConfig(
+                **vcm_kw, vcm_force_continuation_prob=1.0), "kd"),
+            ("VCM+VM emission", "vcm", RenderConfig(
+                **vcm_kw, vcm_use_vm=True), "emission_scale")]
+
+
+def loss_and_grad(scene, cam, cfg, param: str, seed: int = 0):
+    """Mean image of one iteration and its gradient with respect to kd of
+    material 0 (a wall) or the emission scale (``diff``)."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    start = scene.materials.kd[0] if param == "kd" else 1.0
+    loss, grads = diff.render_loss_and_grad(
+        lambda s: Renderer(s, cam, cfg, seed=seed)._iteration(
+            0, GRAD_R2)[0], scene, {(param, 0): start})
+    return float(loss), grads[(param, 0)].detach().cpu().double()
+
+
+def phase_grad_parity(dev) -> None:
+    """Gradients of 32^2 iterations on the card against the CPU port's."""
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    for label, tol, cfg, param in grad_parity_cases():
+        out = []
+        for d in (dev, torch.device("cpu")):
+            scene, cam = get_scene_by_name(MAIN_SCENE, d)
+            out.append(loss_and_grad(scene, cam, cfg, param))
+        (lc, gc), (lh, gh) = out
+        rel = float(((gc - gh).abs() / gh.abs()).max())
+        print(f"[grad-parity] {label} {GRAD_PARITY_SIZE}^2: loss card "
+              f"{lc:.7g} CPU {lh:.7g}; gradient card {gc.tolist()} CPU "
+              f"{gh.tolist()}: max rel err {rel:.3g} (bound "
+              f"{GRAD_RTOL[tol]})")
+        if (not bool(torch.isfinite(gc).all()) or not bool((gh > 0).all())
+                or rel > GRAD_RTOL[tol]):
+            raise AssertionError(f"{label} gradient on the card differs "
+                                 "from the CPU port's")
+
+
+def phase_grad_main(dev) -> None:
+    """Loss and gradient at full width: forward plus backward seconds and
+    peak memory (one warm-up, then one timed run), and three steps of
+    gradient descent on the wall's kd toward a target rendered at 0.8 kd
+    with the same seed (PT 512^2)."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    cases = (("PT", RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)),
+             ("PPM", ppm_main_config()), ("VCM", vcm_main_config()))
+    for label, cfg in cases:
+        for param in ("kd", "emission_scale"):
+            loss_and_grad(scene, cam, cfg, param)      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, g = loss_and_grad(scene, cam, cfg, param)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"[grad-main] {label} {MAIN_SIZE}^2 d/d{param}: "
+                  f"loss {loss:.6g}, gradient {g.tolist()}; forward + "
+                  f"backward {dt:.3f} s, peak memory {peak / 2 ** 30:.3f} "
+                  "GiB")
+            if not bool(torch.isfinite(g).all()) or not bool((g > 0).all()):
+                raise AssertionError(f"{label}: gradient not finite and "
+                                     "positive")
+
+    # gradient descent with the Polyak step (the loss's minimum is 0: the
+    # target is the same render at the target kd)
+    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
+    kd0 = scene.materials.kd[0]
+
+    def render(s):
+        return Renderer(s, cam, cfg, seed=0)._iteration(0, GRAD_R2)[0]
+
+    with torch.no_grad():
+        target = render(diff.set_material_param(
+            scene, "kd", 0, kd0 * GRAD_TARGET_SCALE))
+    kd = kd0.clone()
+    losses = []
+    for step in range(GRAD_DESCENT_STEPS + 1):
+        x = kd.clone().requires_grad_(True)
+        loss = torch.mean(torch.square(
+            render(diff.set_material_param(scene, "kd", 0, x)) - target))
+        (g,) = torch.autograd.grad(loss, x)
+        losses.append(float(loss.detach()))
+        print(f"[grad-main] descent step {step}: kd {kd.tolist()}, loss "
+              f"{losses[-1]:.6g}")
+        if step < GRAD_DESCENT_STEPS:
+            kd = kd - (loss.detach() / torch.sum(g * g)) * g
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"gradient descent did not lower the loss at "
+                             f"every step: {losses}")
+
+
 def phase_vcm_goldens(dev) -> None:
     """The ``*__vcm`` goldens come from JAX's VC (no merging), which the
     port follows stream by stream: PT's bar, with Cornell's z-fight
@@ -2044,11 +2306,19 @@ def main() -> int:
     phase_ppm_parity(dev)
     for k, c in phase_ppm_main(dev).items():
         launches[k] += c
+    timed("media-parity", phase_media_parity, dev)
+    media_launches, media_err = timed("media-main", phase_media_main, dev)
+    for k, c in media_launches.items():
+        launches[k] += c
+    b3 = kernels["gather_photons_tiled"]
+    b3["max_abs_err"] = max(b3["max_abs_err"], media_err)
     phase_vcm_goldens(dev)
     phase_vcm_parity(dev)
     for use_vm in (False, True):
         for k, c in phase_vcm_main(dev, use_vm).items():
             launches[k] += c
+    timed("grad-parity", phase_grad_parity, dev)
+    timed("grad-main", phase_grad_main, dev)
     timed("bvh-goldens", phase_goldens, dev, True)
     timed("bvh-parity", phase_bvh_parity, dev)
     for tag, scene_name, size, iters in (

@@ -4,9 +4,11 @@ The same renderer for an NVIDIA Hopper GPU: plain array code is PyTorch,
 and each Pallas TPU kernel of the JAX package becomes a kernel written by
 hand in CUDA C++ (``csrc/``), with a plain PyTorch version beside it that
 runs for CPU tensors. The package mirrors the JAX package's module paths.
-It covers path tracing, progressive photon mapping and VCM with vertex
-merging, with the dense intersector on the Cornell scenes; ``ROADMAP.md``
-lists what follows.
+It covers path tracing, progressive photon mapping (also in a
+participating medium) and VCM with vertex merging, on the Cornell scenes
+(dense intersector) and the BVH scenes, and gradients with respect to
+material and emission parameters (``diff``); ``ROADMAP.md`` lists what
+follows.
 """
 from .camera import Camera
 from .config import Intersector, RenderConfig, RenderMethod

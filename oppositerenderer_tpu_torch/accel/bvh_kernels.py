@@ -8,9 +8,10 @@ traversal) and the JAX package's wavefront ``accel/bvh.traverse``/
 tensors they launch the hand-written kernel of ``csrc/bvh.cu``; for CPU
 tensors they run the plain versions ``traverse_plain`` and
 ``traverse_any_plain``. Each wrapper counts its traversal launches in a
-``launches`` attribute. On the card each block of the kernel first
-compacts the live lanes (``tmax > tmin``) of its 128 lanes and its
-threads walk only those; :func:`compact_live` runs that compaction alone
+``launches`` attribute and, on both devices, gives every input a zero
+gradient (``zero_grad``), as the JAX package's ``custom_vjp``s do. On
+the card each block of the kernel first compacts the live lanes
+(``tmax > tmin``) of its 128 lanes and its threads walk only those; :func:`compact_live` runs that compaction alone
 (its plain version :func:`compact_live_plain`) so that it can be checked.
 
 The plain version is the JAX wavefront's float32 loop (``bvh._run_until``)
@@ -38,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import launch
+from .zero_grad import zero_gradient
 
 BIG = 1e30
 # the kernel's static stack (csrc/bvh.cu kMaxStack) and row layout
@@ -316,6 +318,7 @@ def compact_live(tmin, tmax):
     return live, counts
 
 
+@zero_gradient
 def traverse(bvh, o, d, tmin, tmax):
     """Closest hit through the BVH: (t [N] f32, prim [N] int32 (permuted
     triangle id, -1 on a miss), u [N], v [N], found [N] bool). The kernel
@@ -340,6 +343,7 @@ def traverse(bvh, o, d, tmin, tmax):
 traverse.launches = 0
 
 
+@zero_gradient
 def traverse_any(bvh, o, d, tmin, tmax):
     """Any hit through the BVH against the triangles whose baked occluder
     flag is set: found [N] bool. The kernel for CUDA tensors, the plain

@@ -13,12 +13,16 @@ inclusion probability as a weight, so the estimate stays unbiased.
 power of the photons of its tile's slots: the hand-written kernel of
 ``csrc/gather.cu`` for CUDA tensors (built and loaded by ``cuda_build``),
 ``gather_photons_tiled_plain`` for CPU tensors. The wrapper counts its
-kernel launches in a ``launches`` attribute. The kernel reads the grid's
-photons as 48-byte records (``PhotonGrid.packed``, written by the grid's
-own sort), culls each slot's window by its (y,z) grid row
+kernel launches in a ``launches`` attribute. The sums have a zero
+gradient on both devices (``zero_grad``), the JAX tile kernel's
+``custom_vjp``: gradients flow through the factors outside the gather,
+and the photon powers are constants of the iteration. The kernel reads
+the grid's photons as 48-byte records (``PhotonGrid.packed``, written by
+the grid's own sort), culls each slot's window by its (y,z) grid row
 (``_tile_tables``' ``rows``) against each query's cells, and splits a
-tile's slots over ``SLOT_GROUPS`` CTAs whose partial sums a second kernel
-adds in group order; the plain version sums every staged pair at once.
+tile's slots over ``SLOT_GROUPS`` CTAs whose partial sums a second
+kernel adds in group order; the plain version sums every staged pair at
+once.
 The TPU kernel's Mosaic layout workarounds (the transposed ``[16, P_pad]``
 photon packing with its 128-aligned window, the static unroll) are not
 ported.
@@ -31,6 +35,7 @@ import torch
 from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
                           PHOTON_RECORD, PhotonGrid, ceil_div)
 from .cuda_build import launch
+from .zero_grad import zero_gradient
 
 TILE = 256          # queries per tile
 BLOCK = 16          # square image block edge (BLOCK^2 == TILE)
@@ -268,6 +273,17 @@ def gather_photons_tiled_kernel(starts, lens, weights, rows, r2, qpos,
     return out
 
 
+@zero_gradient
+def _tiled_sums(starts, lens, weights, rows, r2, qpos, qnormal, grid,
+                check_normal):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (starts, lens, weights, rows, r2, qpos, qnormal, grid,
+            check_normal)
+    if qpos.device.type == "cpu":
+        return gather_photons_tiled_plain(*args)
+    return gather_photons_tiled_kernel(*args)
+
+
 def gather_photons_tiled(grid: PhotonGrid, position: torch.Tensor,
                          normal: torch.Tensor, radius, *,
                          u_rows: torch.Tensor, check_normal: bool = True,
@@ -278,19 +294,15 @@ def gather_photons_tiled(grid: PhotonGrid, position: torch.Tensor,
     uniforms. Returns (accum_power [N,3], stats): the estimator and stats
     of ``photon_map.gather_photons``, with per-query stats being the
     owning tile's counts. The kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors; a zero gradient on both."""
     n = position.shape[0]
     if n % TILE:
         raise ValueError(f"{n} queries are not a multiple of {TILE}")
     starts, lens, weights, visited, total, rows = _tile_tables(
         grid, position, radius, u_rows, valid=valid)
     r = torch.as_tensor(radius, dtype=torch.float32, device=position.device)
-    args = (starts, lens, weights, rows, torch.square(r), position, normal,
-            grid, check_normal)
-    if position.device.type == "cpu":
-        accum = gather_photons_tiled_plain(*args)
-    else:
-        accum = gather_photons_tiled_kernel(*args)
+    accum = _tiled_sums(starts, lens, weights, rows, torch.square(r),
+                        position, normal, grid, check_normal)
     stats = dict(
         photons_visited=torch.repeat_interleave(visited, TILE),
         photon_subsampled=torch.repeat_interleave(

@@ -15,13 +15,16 @@ hand-written kernels of ``csrc/intersect.cu`` (built and loaded by
 ``cuda_build``; without ``nvcc`` a CUDA call raises). For CPU tensors
 they run the plain PyTorch versions of the same function,
 ``closest_hit_tris_plain`` and ``occluded_tris_plain``. Each wrapper
-counts its kernel launches in a ``launches`` attribute.
+counts its kernel launches in a ``launches`` attribute and, on both
+devices, gives every input a zero gradient (``zero_grad``), as the JAX
+package's ``custom_vjp``s do.
 """
 from __future__ import annotations
 
 import torch
 
 from .cuda_build import launch
+from .zero_grad import zero_gradient
 
 BIG = 1e30
 
@@ -132,6 +135,7 @@ def closest_hit_tris_plain(o, d, tmin, tmax, tris, chunk_size=None):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+@zero_gradient
 def closest_hit_tris(o, d, tmin, tmax, tris, chunk_size=None):
     """Closest hit of every ray against every triangle of the record table
     ``tris`` [T, TRI_RECORD] (:func:`triangle_records`): (t [N] f32,
@@ -178,6 +182,7 @@ def occluded_tris_plain(o, d, tmin, tmax, occ, chunk_size=None):
     return torch.cat(parts)
 
 
+@zero_gradient
 def occluded_tris(o, d, tmin, tmax, occ, chunk_size=None):
     """Any-hit shadow test [N] bool against the occluder table ``occ``
     [T_occ, TRI_RECORD] (:func:`triangle_records` with the occluder

@@ -23,7 +23,10 @@ The kernel reads the grid's vertices as 64-byte records
 (:func:`pack_vertex_records`, built once per grid into
 ``VertexGrid.packed``) and culls each slot's window by its (y,z) grid row
 (``_tile_tables``' ``rows``) against each query's cells; the plain
-version sums every staged pair. The TPU kernel's Mosaic workarounds (the
+version sums every staged pair. The two sums and the colours applied to
+them have a zero gradient on both devices (``zero_grad``), the JAX tile
+kernel's ``custom_vjp``; the camera throughput and the normalisation
+outside keep theirs. The TPU kernel's Mosaic workarounds (the
 transposed ``[16, M_pad]`` vertex packing, the 128-aligned DMA window,
 the static slot unroll) are not ported.
 """
@@ -35,6 +38,7 @@ from ..core.math import INV_PI, Tensor, dot, local_reflect
 from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
                           cell_coords, cell_index_1d)
 from .cuda_build import launch
+from .zero_grad import zero_gradient
 from .gather_kernels import (CHUNK, PLAIN_ELEMENT_BUDGET, ROWS, TILE,
                              _tile_tables)
 
@@ -279,6 +283,17 @@ def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
     return order, (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho
 
 
+@zero_gradient
+def _merged(kd_pi, rho, *args):
+    """kd/pi out1 + rho out2: the pair loop's two sums by the kernel for
+    CUDA tensors, by the plain version for CPU tensors."""
+    if kd_pi.device.type == "cpu":
+        out1, out2 = merge_vertices_tiled_plain(*args)
+    else:
+        out1, out2 = merge_vertices_tiled_kernel(*args)
+    return kd_pi * out1 + rho * out2
+
+
 def merge_vertices_tiled(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
                          cam_dVM, active, radius_sq, mis_vc_w,
                          n_light_paths, u_rows, depth1) -> Tensor:
@@ -287,18 +302,15 @@ def merge_vertices_tiled(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
     ``integrators/vcm._merge_vertices``. N is a multiple of TILE;
     ``u_rows`` is [N // TILE, ROWS + 2] uniforms, drawn per raster lane and
     applied to the cell-sorted tiles, as in JAX. The kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors; the merged sums have a
+    zero gradient on both."""
     n = cam_pos.shape[0]
     if n % TILE:
         raise ValueError(f"{n} queries are not a multiple of {TILE}")
     order, args, kd_pi, rho = merge_tables(
         vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active, radius_sq,
         mis_vc_w, u_rows, depth1)
-    if cam_pos.device.type == "cpu":
-        out1, out2 = merge_vertices_tiled_plain(*args)
-    else:
-        out1, out2 = merge_vertices_tiled_kernel(*args)
-    acc_s = kd_pi * out1 + rho * out2
+    acc_s = _merged(kd_pi, rho, *args)
     acc = torch.empty_like(acc_s)
     acc[order] = acc_s
     radius_sq = args[4][0]

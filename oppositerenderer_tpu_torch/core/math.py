@@ -116,3 +116,47 @@ class Frame:
 def local_reflect(w: Tensor) -> Tensor:
     """Reflect about the local +z normal."""
     return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# AABB (reference math/AAB.h)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AABB:
+    min: Tensor  # [3]
+    max: Tensor  # [3]
+
+    @classmethod
+    def from_points(cls, pts: Tensor) -> "AABB":
+        flat = pts.reshape(-1, 3)
+        return cls(min=torch.amin(flat, dim=0), max=torch.amax(flat, dim=0))
+
+    @property
+    def extent(self) -> Tensor:
+        return self.max - self.min
+
+    @property
+    def center(self) -> Tensor:
+        return 0.5 * (self.min + self.max)
+
+    def bounding_sphere(self) -> tuple[Tensor, Tensor]:
+        """(center, radius): reference AAB::getBoundingSphere."""
+        c = self.center
+        return c, length(self.max - c)
+
+
+def ray_aabb(o: Tensor, inv_d: Tensor, bmin: Tensor, bmax: Tensor,
+             tmin: Tensor, tmax: Tensor) -> tuple[Tensor, Tensor]:
+    """Batched slab test: (t_enter, t_exit), a hit iff enter <= exit.
+
+    ``o``/``inv_d`` are [..., 3]; ``bmin``/``bmax`` broadcast against them.
+    torch.minimum/maximum propagate NaN, as jnp.minimum/maximum do.
+    """
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tnear = torch.minimum(t0, t1)
+    tfar = torch.maximum(t0, t1)
+    t_enter = torch.maximum(torch.amax(tnear, dim=-1), tmin)
+    t_exit = torch.minimum(torch.amin(tfar, dim=-1), tmax)
+    return t_enter, t_exit

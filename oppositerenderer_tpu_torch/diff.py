@@ -1,0 +1,85 @@
+"""Differentiable rendering with respect to material and emission
+parameters.
+
+The counterpart of ``oppositerenderer_tpu/diff.py``. Radiance estimates
+are differentiable in the material BSDF parameters (kd, ks, exponent,
+kr, kt) and in the light emission, by the detached-sampling estimator:
+sampling decisions, pdfs, Russian-roulette probabilities and MIS weights
+are ``detach()``-ed (``bsdf.BSDF``, the integrators), so autograd through
+a render is the gradient of the expected image for fixed random streams.
+Visibility and geometry edges are not differentiated (no edge sampling).
+
+The kernels give their inputs a zero gradient on both devices
+(``accel/zero_grad``), as the JAX package's ``custom_vjp``s do. So the
+tile gather (PPM) and the tile merge (VCM+VM) drop the photon-power and
+merge terms; the budgeted gather and merge, taken when the image does
+not tile, keep them. The sharded loss and gradient arrive with the
+port's distribution.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+import torch
+
+from .scene.types import Scene
+
+
+def _with_materials(scene: Scene, materials, lights=None) -> Scene:
+    """``scene`` with other material (and light) parameters. The dense
+    route's triangle tables hold geometry and the emitter flags only, so
+    they carry over while the material kinds stay."""
+    out = dataclasses.replace(scene, materials=materials,
+                              lights=scene.lights if lights is None
+                              else lights)
+    cache = scene.dense_cache
+    if (cache is not None and cache[1] is scene.materials
+            and materials.kind is scene.materials.kind):
+        out.dense_cache = (cache[0], materials) + cache[2:]
+    return out
+
+
+def set_material_param(scene: Scene, field: str, material_idx: int,
+                       value: torch.Tensor) -> Scene:
+    """Replace one material's parameter (e.g. kd of wall 2) without
+    touching ``scene``; ``value`` may require grad."""
+    table = scene.materials
+    arr = getattr(table, field)
+    new = torch.cat([arr[:material_idx],
+                     torch.as_tensor(value, dtype=arr.dtype,
+                                     device=arr.device)
+                     .reshape((1,) + arr.shape[1:]),
+                     arr[material_idx + 1:]])
+    return _with_materials(scene, dataclasses.replace(table, **{field: new}))
+
+
+def scale_emission(scene: Scene, scale) -> Scene:
+    """Scale all light emission by ``scale``: the materials' emission and
+    the light table's power and emission, which the build derives from
+    one another, scale together."""
+    m, lt = scene.materials, scene.lights
+    return _with_materials(
+        scene, dataclasses.replace(m, emission=m.emission * scale),
+        dataclasses.replace(lt, power=lt.power * scale,
+                            emission=lt.emission * scale))
+
+
+def render_loss_and_grad(render_fn: Callable[[Scene], torch.Tensor],
+                         scene: Scene, wrt: Mapping):
+    """The mean of ``render_fn(scene')`` and its gradients, where ``scene'``
+    is ``scene`` with the overrides of ``wrt``: a mapping of (field,
+    material_idx) to an initial value (a field of the material table, or
+    ``"emission_scale"``, whose index is ignored). Returns (loss, grads
+    dict with ``wrt``'s keys)."""
+    keys = list(wrt)
+    dev = scene.device
+    values = [torch.as_tensor(wrt[k], dtype=torch.float32, device=dev)
+              .detach().clone().requires_grad_(True) for k in keys]
+    s = scene
+    for (field, idx), v in zip(keys, values):
+        s = (scale_emission(s, v) if field == "emission_scale"
+             else set_material_param(s, field, idx, v))
+    loss = torch.mean(render_fn(s))
+    grads = torch.autograd.grad(loss, values)
+    return loss.detach(), dict(zip(keys, grads))

@@ -17,7 +17,10 @@ schedule per iteration follows OptixRenderer::renderNextIteration for PPM
    (``ppm/IndirectRadianceEstimation.cu``);
 5. direct estimate: shadow samples at the hitpoints; emitter, specular and
    miss pixels pass their stored radiance through
-   (``ppm/DirectRadianceEstimation.cu``).
+   (``ppm/DirectRadianceEstimation.cu``);
+6. in a participating medium, the in-scattered radiance: one point of
+   the eye walk's in-medium segments per pixel gathers the volumetric
+   photons (``integrators/media.py``).
 
 The JAX package picks its gather by backend; the port takes the tile
 gather on every device, so the image does not depend on the device: a
@@ -25,8 +28,8 @@ CUDA tensor runs the kernel, a CPU tensor its plain version. Every random
 decision draws the JAX package's per-lane streams. The deliberate fixes of
 the JAX package against the reference (cosine emission from area lights,
 the gather's BRDF kd/pi, no emitter display clamp unless
-``reference_faithful``) are kept. Participating media, the stochastic hash
-and the CPU kd-tree arrive with later slices.
+``reference_faithful``) are kept. The stochastic hash and the CPU kd-tree
+arrive with a later slice.
 """
 from __future__ import annotations
 
@@ -40,15 +43,17 @@ from ..accel.intersect import intersect
 from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import PhotonMapStructure, RenderConfig
-from ..core.math import Tensor, dot
+from ..core.math import Tensor, dot, luminance
 from ..core.rng import Key, LaneSampler, fold_in, iteration_key
 from ..core.sampling import (sample_cone, sample_disc, sample_unit_sphere,
                              sample_unit_hemisphere_cos)
 from ..lights import AREA, SPOT
 from ..photon_map import (PhotonBatch, build_photon_grid, gather_photons,
                           min_cell_size_for_window)
-from ..scene.types import Scene
+from ..scene.types import Medium, Scene
 from .common import bsdf_at_hit, nee_direct, pixel_coords, scene_epsilon
+from .media import (sample_scatter_distance, segment_overlap, transmittance,
+                    volumetric_radiance_estimate)
 
 PASS_PPM_EYE = 1
 PASS_PPM_PHOTON = 2
@@ -59,8 +64,13 @@ BIG = 1e30
 @dataclasses.dataclass
 class HitpointBuffer:
     """Per-pixel first-non-specular-hit record (renderer/Hitpoint.h:9-18,
-    plus what rebuilds the BSDF for the estimates). The JAX record's
-    in-medium sample fields belong to the media slice."""
+    plus what rebuilds the BSDF for the estimates).
+
+    The ``vol_*`` fields (zeros without a medium) hold one in-scatter
+    sample: a segment of the whole eye walk, picked by a weighted
+    reservoir (the reference gathers on every in-medium segment,
+    ParticipatingMedium.cu:66-201; one reweighted sample keeps one
+    volumetric gather per pixel and stays unbiased)."""
 
     position: Tensor        # [N,3]
     wo: Tensor              # [N,3] direction back toward the previous vertex
@@ -73,13 +83,12 @@ class HitpointBuffer:
     found: Tensor           # [N] bool: stored a non-specular hit
     hit_emitter: Tensor     # [N] bool
     specular_chain: Tensor  # [N] bool: passed >= 1 specular vertex
-
-
-def _require_surface_only(scene: Scene) -> None:
-    if scene.medium is not None:
-        raise NotImplementedError(
-            "PPM in participating media arrives with the media slice of "
-            "the port")
+    vol_point: Tensor       # [N,3] sampled in-medium point
+    vol_t: Tensor           # [N] distance into the medium at the sample
+    vol_len: Tensor         # [N] in-medium overlap length of the segment
+    vol_atten: Tensor       # [N,3] path attenuation up to the segment start
+    vol_w: Tensor           # [N] reservoir weight of the selected segment
+    vol_wsum: Tensor        # [N] total reservoir weight over the walk
 
 
 def _norm(a: Tensor) -> Tensor:
@@ -97,8 +106,10 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
     """Walk each pixel's specular chain to its first non-specular hit
     (RayGeneratorPPM.cu; Diffuse.cu:71-88, Mirror.cu:52-64,
     Glass.cu:90-140), for at most ``cfg.max_radiance_trace_depth``
-    segments."""
-    _require_surface_only(scene)
+    segments. In a medium, every segment outside a dielectric is
+    attenuated by its transmittance and offered to the in-scatter
+    reservoir; that draws two uniforms a step before the BSDF's, as the
+    JAX package does, and none without a medium."""
     n = px.shape[0]
     dev = px.device
     s = LaneSampler(key, lane_ids, cheap=cfg.use_cheap_random)
@@ -107,6 +118,9 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     def zeros3():
         return torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def zeros1():
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
 
     def no():
         return torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -117,9 +131,17 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         radiance=zeros3(),
         mat=torch.zeros((n,), dtype=torch.int32, device=dev), kd=zeros3(),
         ns=zeros3(), ng=zeros3(), found=no(), hit_emitter=no(),
-        specular_chain=no())
+        specular_chain=no(), vol_point=zeros3(), vol_t=zeros1(),
+        vol_len=zeros1(), vol_atten=zeros3(), vol_w=zeros1(),
+        vol_wsum=zeros1())
     walking = torch.ones((n,), dtype=torch.bool, device=dev)
     tmin = torch.full((n,), 1.0, device=dev) * eps
+    medium = scene.medium
+    # a dielectric's interior skips the medium: the bit flips on every
+    # refraction (a side change against the geometric normal), the form
+    # of the reference's *_IN_PARTICIPATING_MEDIUM ray types
+    # (RayType.h:16-22, Glass.cu:146-160); only a medium reads it
+    inside = no()
 
     for depth in range(cfg.max_radiance_trace_depth):
         skey = LaneSampler(fold_in(key, 1000 + depth), lane_ids,
@@ -129,6 +151,35 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         live = walking & hit.hit
         bsdf, is_emitter, emitter_rad = bsdf_at_hit(scene, hit, d)
         is_spec = bsdf.is_specular() & ~is_emitter
+
+        if medium is not None:
+            # transmittance over the segment's in-medium part
+            # (ParticipatingMedium.cu:66-93); the reservoir weighs a
+            # segment by its in-medium length times the luminance of the
+            # attenuation before it and takes it with probability
+            # w / wsum, so render_iteration reweights by wsum / w
+            t_seg = torch.where(hit.hit, hit.t, 0.0)
+            t_enter, overlap = segment_overlap(medium, o, d, t_seg)
+            in_medium = walking & ~inside
+            overlap = torch.where(in_medium, overlap, 0.0)
+            tr = transmittance(medium, overlap)
+            atten_before = hp.attenuation
+            hp.attenuation = torch.where(walking[:, None],
+                                         hp.attenuation * tr[:, None],
+                                         hp.attenuation)
+            w_seg = overlap * torch.clamp_min(luminance(atten_before), 0.0)
+            wsum_new = hp.vol_wsum + w_seg
+            take = in_medium & (w_seg > 0.0) & (
+                skey.next1() * wsum_new < w_seg)
+            t_v = skey.next1() * overlap
+            sel_v = take[:, None]
+            hp.vol_point = torch.where(sel_v, o + (t_enter + t_v)[:, None] * d,
+                                       hp.vol_point)
+            hp.vol_t = torch.where(take, t_v, hp.vol_t)
+            hp.vol_len = torch.where(take, overlap, hp.vol_len)
+            hp.vol_atten = torch.where(sel_v, atten_before, hp.vol_atten)
+            hp.vol_w = torch.where(take, w_seg, hp.vol_w)
+            hp.vol_wsum = wsum_new
 
         # emitter: pick up radiance, stop (DiffuseEmitter.cu:40-52)
         em = live & is_emitter
@@ -155,6 +206,9 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         hp.attenuation = torch.where((cont & res.valid)[:, None],
                                      hp.attenuation * w, hp.attenuation)
         hp.specular_chain = hp.specular_chain | cont
+        if medium is not None:
+            inside = inside ^ (cont & res.valid & (
+                dot(bsdf.ng, res.world_dir) * dot(bsdf.ng, -d) < 0.0))
         o = torch.where(cont[:, None], hit.position, o)
         d = torch.where(cont[:, None], res.world_dir, d)
         walking = cont & res.valid
@@ -215,16 +269,32 @@ def emit_photons(scene: Scene, s: LaneSampler
     return origin, direction, power
 
 
+def _photon_batch(rows: dict) -> PhotonBatch:
+    return PhotonBatch(position=torch.cat(rows["pos"]),
+                       power=torch.cat(rows["pow"]),
+                       direction=torch.cat(rows["dir"]),
+                       valid=torch.cat(rows["valid"]))
+
+
 def trace_photon_pass(scene: Scene, cfg: RenderConfig, key: Key,
                       eps: Tensor, lane_ids: Tensor
-                      ) -> tuple[PhotonBatch, dict]:
+                      ) -> tuple[PhotonBatch, PhotonBatch | None, dict]:
     """Trace ``lane_ids.shape[0]`` photon paths (``lane_ids`` are global
-    photon indices). Deposit rows come out depth-major, row
+    photon indices): (surface photons, volumetric photons or None without
+    a medium, stats). Deposit rows come out depth-major, row
     ``depth * n + lane``, as the JAX package's stacked per-bounce scan
     outputs: that order goes into the grid's stable sort. Capacity is
-    ``n * max_photon_trace_depth`` rows; the per-path deposit budget
-    (config.h:23-27) masks the rest."""
-    _require_surface_only(scene)
+    ``n * max_photon_trace_depth`` rows; the per-path deposit budgets
+    (config.h:23-27; ``cfg.media_max_deposits_per_photon`` in the medium)
+    mask the rest.
+
+    In a medium, a photon outside a dielectric samples a free-flight
+    distance; if it falls before the surface, the photon scatters there
+    (ParticipatingMedium.cu:110-201): it deposits a volumetric photon with
+    its power before the albedo, takes the albedo and an isotropic new
+    direction, and skips the surface. That draws one uniform before the
+    BSDF's and two after them a step, as the JAX package does, and none
+    without a medium."""
     n = lane_ids.shape[0]
     dev = lane_ids.device
     max_dep = cfg.max_photon_deposits_per_emitted
@@ -236,6 +306,14 @@ def trace_photon_pass(scene: Scene, cfg: RenderConfig, key: Key,
     path_len = torch.zeros((n,), dtype=torch.int32, device=dev)
     tmin = torch.full((n,), 1.0, device=dev) * eps
     rows = {"pos": [], "pow": [], "dir": [], "valid": []}
+    medium = scene.medium
+    if medium is not None:
+        vmax = cfg.media_max_deposits_per_photon
+        vol_stored = torch.zeros((n,), dtype=torch.int32, device=dev)
+        vol_rows = {"pos": [], "pow": [], "dir": [], "valid": []}
+        albedo = medium.sigma_s / torch.clamp_min(medium.sigma_t, 1e-12)
+        # the dielectric-interior bit (trace_eye_pass)
+        inside = torch.zeros((n,), dtype=torch.bool, device=dev)
 
     for depth in range(cfg.max_photon_trace_depth):
         skey = LaneSampler(fold_in(key, 2000 + depth), lane_ids,
@@ -244,6 +322,21 @@ def trace_photon_pass(scene: Scene, cfg: RenderConfig, key: Key,
         bsdf, is_emitter, _ = bsdf_at_hit(scene, hit, d)
         live = alive & hit.hit & ~is_emitter  # emitters absorb
         is_spec = bsdf.is_specular()
+
+        if medium is not None:
+            t_enter, overlap = segment_overlap(
+                medium, o, d, torch.where(hit.hit, hit.t, BIG))
+            delta, _ = sample_scatter_distance(medium, skey.next1())
+            scatter = alive & ~inside & (delta < overlap)
+            sp = o + (t_enter + delta)[:, None] * d
+            vdep = scatter & (vol_stored < vmax)
+            for k, v in (("pos", sp), ("pow", power), ("dir", d),
+                         ("valid", vdep)):
+                vol_rows[k].append(v)
+            vol_stored = vol_stored + vdep.to(torch.int32)
+            power = torch.where(scatter[:, None], power * albedo, power)
+            new_dir, _ = sample_unit_sphere(skey.next2())
+            live = live & ~scatter   # scattered lanes skip the surface
 
         # deposit at non-specular hits from depth 1 (Diffuse.cu:98-103)
         deposit = live & ~is_spec & (depth >= 1) & (stored < max_dep)
@@ -273,31 +366,66 @@ def trace_photon_pass(scene: Scene, cfg: RenderConfig, key: Key,
             power / torch.clamp_min(p_cont, 1e-20)[:, None], power)
         live = live & survive
 
+        if medium is not None:
+            inside = inside ^ (live & (dot(bsdf.ng, res.world_dir)
+                                       * dot(bsdf.ng, -d) < 0.0))
         o = torch.where(live[:, None], hit.position, o)
         d = torch.where(live[:, None], res.world_dir, d)
         alive = live
+        if medium is not None:
+            o = torch.where(scatter[:, None], sp, o)
+            d = torch.where(scatter[:, None], new_dir, d)
+            alive = live | scatter
         path_len = path_len + alive.to(torch.int32)
 
-    photons = PhotonBatch(position=torch.cat(rows["pos"]),
-                          power=torch.cat(rows["pow"]),
-                          direction=torch.cat(rows["dir"]),
-                          valid=torch.cat(rows["valid"]))
     stats = dict(photons_stored=torch.sum(stored),
                  avg_photon_path_length=torch.mean(
                      path_len.to(torch.float32)))
-    return photons, stats
+    vol_photons = None
+    if medium is not None:
+        vol_photons = _photon_batch(vol_rows)
+        stats["volumetric_photons_stored"] = torch.sum(vol_stored)
+    return _photon_batch(rows), vol_photons, stats
 
 
 # ---------------------------------------------------------------------------
 # full iteration
 # ---------------------------------------------------------------------------
 
+def _volumetric(medium: Medium, cfg: RenderConfig, hp: HitpointBuffer,
+                vol_photons: PhotonBatch, radius: Tensor, est_key: Key,
+                pixel_lanes: Tensor) -> Tensor:
+    """The in-scattered radiance [N,3] at each pixel's reservoir-picked
+    eye segment, reweighted by the inverse pick probability. The volume
+    density needs a wider support: the budgeted gather at 3r without the
+    normal test, on every device, as in the JAX package (no tile kernel
+    computes it)."""
+    vol_radius = radius * 3.0
+    vgrid = build_photon_grid(
+        vol_photons, cfg.photon_grid_resolution,
+        min_cell_size=min_cell_size_for_window(vol_radius, 4))
+    s_vg = LaneSampler(fold_in(est_key, 56), pixel_lanes,
+                       cheap=cfg.use_cheap_random)
+    vpow, _ = gather_photons(vgrid, hp.vol_point, hp.ns, vol_radius,
+                             max_cells_per_axis=4,
+                             budget_total=cfg.gather_photon_budget,
+                             check_normal=False, u_stride=s_vg.next1())
+    sel_ok = hp.vol_w > 0.0
+    inv_pick = torch.where(
+        sel_ok, hp.vol_wsum / torch.clamp_min(hp.vol_w, 1e-30), 0.0)
+    volumetric = volumetric_radiance_estimate(
+        medium, vpow, vol_radius, hp.vol_len, hp.vol_t,
+        cfg.photons_per_iteration, weight=hp.vol_atten * inv_pick[:, None])
+    return torch.where(sel_ok[:, None], volumetric, 0.0)
+
+
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
                      iteration: int, base_key: Key, radius_sq
                      ) -> tuple[Tensor, dict]:
     """One PPM iteration at the squared gather radius ``radius_sq``:
     radiance [H, W, 3] and the stats dict (photons stored, average photon
-    path length, photons visited and subsampled by the gather)."""
+    path length, photons visited and subsampled by the surface gather,
+    and in a medium the volumetric photons stored)."""
     if cfg.photon_map_structure != PhotonMapStructure.SORTED_UNIFORM_GRID:
         raise NotImplementedError(
             f"{cfg.photon_map_structure.name}: the port's PPM builds the "
@@ -323,8 +451,8 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
     photon_lanes = torch.arange(cfg.photons_per_iteration,
                                 dtype=torch.int64, device=dev)
     with torch.profiler.record_function("ppm_photon_pass"):
-        photons, photon_stats = trace_photon_pass(scene, cfg, photon_key,
-                                                  eps, photon_lanes)
+        photons, vol_photons, photon_stats = trace_photon_pass(
+            scene, cfg, photon_key, eps, photon_lanes)
 
     with torch.profiler.record_function("ppm_grid_build"):
         grid = build_photon_grid(
@@ -369,7 +497,13 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
     passthrough = (torch.clamp_max(hp.radiance, 1.0)
                    if cfg.reference_faithful else hp.radiance)
 
-    radiance = (direct + indirect + passthrough).reshape(H, W, 3)
+    radiance = direct + indirect + passthrough
+    if scene.medium is not None:
+        with torch.profiler.record_function("ppm_volume_gather"):
+            radiance = radiance + _volumetric(scene.medium, cfg, hp,
+                                              vol_photons, radius, est_key,
+                                              pixel_lanes)
+    radiance = radiance.reshape(H, W, 3)
     stats = dict(**photon_stats,
                  **{k: torch.sum(v) for k, v in gather_stats.items()})
     return radiance, stats

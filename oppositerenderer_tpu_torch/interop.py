@@ -1,5 +1,5 @@
-"""Scene, BVH, camera, key, photon and light-vertex records from the JAX
-package's leaves.
+"""Scene, BVH, camera, key, photon, hitpoint and light-vertex records from
+the JAX package's leaves.
 
 The JAX package's records are trees of arrays. Handed over as numpy
 arrays, with the port's field names (a nested mapping, e.g. from
@@ -20,10 +20,12 @@ from .accel.vm_kernels import VERTEX_FIELDS, pack_vertex_records
 from .camera import Camera
 from .core.rng import Key
 from .devices import resolve_device
+from .integrators.ppm import HitpointBuffer
 from .integrators.vcm import LightVertexStore, VertexGrid
 from .lights import LIGHT_FIELDS, LightTable
 from .photon_map import PhotonBatch, PhotonGrid, pack_photon_records
-from .scene.types import MATERIAL_FIELDS, Geometry, MaterialTable, Scene
+from .scene.types import (MATERIAL_FIELDS, Geometry, MaterialTable, Medium,
+                          Scene)
 
 GEOMETRY_FIELDS = tuple(Geometry.__dataclass_fields__)
 CAMERA_FIELDS = ("eye", "lookdir", "up", "camera_u", "camera_v", "aperture")
@@ -31,6 +33,8 @@ PHOTON_BATCH_FIELDS = tuple(PhotonBatch.__dataclass_fields__)
 PHOTON_GRID_ARRAYS = ("position", "power", "direction", "offsets", "origin",
                       "cell_size", "n_valid")
 LIGHT_VERTEX_FIELDS = tuple(LightVertexStore.__dataclass_fields__)
+MEDIUM_FIELDS = tuple(Medium.__dataclass_fields__)
+HITPOINT_FIELDS = tuple(HitpointBuffer.__dataclass_fields__)
 VERTEX_GRID_ARRAYS = tuple(f for f in VertexGrid.__dataclass_fields__
                            if f not in ("resolution", "packed"))
 BVH_NODES = ("nodes_min", "nodes_max", "nodes_a", "nodes_b")
@@ -52,15 +56,13 @@ def scene_from_numpy(leaves: Mapping,
     """``leaves`` maps ``geometry``/``materials``/``lights`` to mappings of
     their fields, plus ``aabb_min``, ``aabb_max`` and optionally ``name``,
     ``textures``, ``normal_maps`` (the atlases), ``bvh`` (a mapping for
-    :func:`bvh_from_numpy`) and ``medium``. A scene with a medium belongs
-    to the media slice and is refused."""
-    if leaves.get("medium") is not None:
-        raise NotImplementedError(
-            "scenes with a medium arrive with the media slice of the port")
+    :func:`bvh_from_numpy`) and ``medium`` (a mapping of ``sigma_s``,
+    ``sigma_a``, ``aabb_min`` and ``aabb_max``)."""
     atlases = {k: _tensor(leaves[k], device)
                for k in ("textures", "normal_maps")
                if leaves.get(k) is not None}
     bvh = leaves.get("bvh")
+    medium = leaves.get("medium")
     return Scene(
         geometry=Geometry(**_tensors(leaves["geometry"], GEOMETRY_FIELDS,
                                      device)),
@@ -71,6 +73,8 @@ def scene_from_numpy(leaves: Mapping,
         aabb_min=_tensor(leaves["aabb_min"], device),
         aabb_max=_tensor(leaves["aabb_max"], device),
         bvh=None if bvh is None else bvh_from_numpy(bvh, device),
+        medium=(None if medium is None
+                else Medium(**_tensors(medium, MEDIUM_FIELDS, device))),
         name=str(leaves.get("name", "scene")), **atlases)
 
 
@@ -130,6 +134,14 @@ def photon_grid_from_numpy(leaves: Mapping,
     x = _x_cells(arrays["offsets"], arrays["position"].shape[0], res)
     return PhotonGrid(**arrays, resolution=res, packed=pack_photon_records(
         arrays["position"], arrays["direction"], arrays["power"], x))
+
+
+def hitpoint_from_numpy(leaves: Mapping,
+                        device: torch.device | str | None = None
+                        ) -> HitpointBuffer:
+    """``leaves`` maps a JAX ``HitpointBuffer``'s fields (the eye pass's
+    records, its ``vol_*`` in-medium sample included)."""
+    return HitpointBuffer(**_tensors(leaves, HITPOINT_FIELDS, device))
 
 
 def light_vertex_store_from_numpy(leaves: Mapping,

@@ -3,8 +3,8 @@
 The counterpart of ``oppositerenderer_tpu/scene/builder.py``: geometry
 accumulates in Python lists (one triangle at a time) and vectorised
 blocks (``add_mesh``, ``add_triangle_soup``), and is flattened to dense
-arrays once, then moved to the requested device with the texture atlases.
-Participating media arrive with the media slice.
+arrays once, then moved to the requested device with the texture
+atlases and the optional participating medium.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from ..devices import resolve_device
 from ..lights import build_light_table
 from .texture import build_atlas, compute_triangle_tangents
 from .types import (DIFFUSE, EMITTER, GLASS, GLOSSY, MATERIAL_FIELDS, MIRROR,
-                    TEXTURED, Geometry, MaterialTable, Scene)
+                    TEXTURED, Geometry, MaterialTable, Medium, Scene)
 
 
 class SceneBuilder:
@@ -28,6 +28,7 @@ class SceneBuilder:
         self._lights: list[dict] = []
         self._textures: list = []        # images of the diffuse atlas
         self._normal_maps: list = []
+        self._medium: tuple | None = None   # (sigma_s, sigma_a, min, max)
         self._aabb_min = np.full(3, np.inf, np.float32)
         self._aabb_max = np.full(3, -np.inf, np.float32)
 
@@ -181,6 +182,12 @@ class SceneBuilder:
         return (len(self._tris)
                 + sum(b["mat"].shape[0] for b in self._bulk))
 
+    def set_medium(self, sigma_s: float, sigma_a: float, aabb_min=None,
+                   aabb_max=None):
+        """Attach a homogeneous participating medium (the scene's box by
+        default, like the reference's AABInstance in Cornell.cpp:175-179)."""
+        self._medium = (float(sigma_s), float(sigma_a), aabb_min, aabb_max)
+
     def add_sphere(self, center, radius: float, material: int):
         c = np.asarray(center, np.float32)
         self._spheres.append((c, float(radius), material))
@@ -233,7 +240,14 @@ class SceneBuilder:
             f: t([m[f] for m in self._materials],
                  np.int32 if f in int_fields else np.float32)
             for f in MATERIAL_FIELDS})
-        return Scene(geometry=geom, materials=mt,
+        medium = None
+        if self._medium is not None:
+            ss, sa, mmin, mmax = self._medium
+            medium = Medium(
+                sigma_s=t(ss), sigma_a=t(sa),
+                aabb_min=t(self._aabb_min if mmin is None else mmin),
+                aabb_max=t(self._aabb_max if mmax is None else mmax))
+        return Scene(geometry=geom, materials=mt, medium=medium,
                      lights=build_light_table(self._lights, device),
                      aabb_min=t(self._aabb_min - aabb_padding),
                      aabb_max=t(self._aabb_max + aabb_padding),

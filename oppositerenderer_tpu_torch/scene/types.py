@@ -4,8 +4,8 @@ The counterpart of ``oppositerenderer_tpu/scene/types.py``. A scene is a
 handful of dense tensors: triangles (parallelograms become two
 triangles), analytic spheres, a material parameter table indexed per
 primitive, the light table, the texture atlases and, above
-``accel.bvh.BVH_AUTO_THRESHOLD`` triangles, the BVH. The participating
-medium belongs to a later slice and stays ``None`` here.
+``accel.bvh.BVH_AUTO_THRESHOLD`` triangles, the BVH, and optionally a
+homogeneous participating medium over a box.
 """
 from __future__ import annotations
 
@@ -107,6 +107,22 @@ class Geometry:
 
 
 @dataclasses.dataclass
+class Medium:
+    """Homogeneous participating medium over an AABB (the reference's
+    ParticipatingMedium material on an AAB instance covering the scene,
+    material/ParticipatingMedium.{h,cu}; flag-gated default-off)."""
+
+    sigma_s: Tensor   # [] scattering coefficient
+    sigma_a: Tensor   # [] absorption coefficient
+    aabb_min: Tensor  # [3]
+    aabb_max: Tensor  # [3]
+
+    @property
+    def sigma_t(self) -> Tensor:
+        return self.sigma_s + self.sigma_a
+
+
+@dataclasses.dataclass
 class Scene:
     geometry: Geometry
     materials: MaterialTable
@@ -116,7 +132,7 @@ class Scene:
     textures: Tensor | None = None     # [n_tex, R, R, 3] diffuse atlas
     normal_maps: Tensor | None = None  # [n_nm, R, R, 3] normal-map atlas
     bvh: object = None                 # accel.bvh.Bvh (big scenes)
-    medium: object = None              # media slice
+    medium: Medium | None = None       # PPM renders it; PT, VCM do not
     name: str = "scene"
     # the dense route's triangle tables (accel.intersect.dense_tables), set
     # per instance at first use; not a field, so dataclasses.replace does

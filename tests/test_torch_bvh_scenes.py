@@ -145,6 +145,9 @@ def test_scene_files_still_raise():
         with pytest.raises(NotImplementedError, match="scene-import"):
             get_scene_by_name(name, "cpu")
     jl = leaves(jax_scene("CornellSmall")[0])
-    jl["medium"] = {"sigma_s": np.float32(0.1)}
-    with pytest.raises(NotImplementedError, match="media slice"):
-        interop.scene_from_numpy(jl, "cpu")
+    # a medium no longer raises: it arrives with the scene
+    jl["medium"] = {"sigma_s": np.float32(0.1), "sigma_a": np.float32(0.0),
+                    "aabb_min": np.zeros(3, np.float32),
+                    "aabb_max": np.ones(3, np.float32)}
+    assert float(interop.scene_from_numpy(jl, "cpu").medium.sigma_t) == \
+        pytest.approx(0.1)

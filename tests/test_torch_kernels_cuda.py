@@ -15,7 +15,11 @@ and B5's live-lane compaction must find the lanes torch.nonzero finds.
 The gather kernel (B3) and the vertex-merge kernel (B4) sum the same terms
 as their plain versions in another order (a tile's slots in groups):
 rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and tables.
+Through their zero-gradient Functions every kernel keeps these outputs
+and gives zero gradients; the PT and PPM gradients and a PPM iteration in
+a medium agree with the CPU port's.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -417,3 +421,115 @@ def test_entry_points_default_to_the_card(cuda):
     assert scene.device.type == "cuda" and cam.eye.device.type == "cuda"
     assert scene.lights.kind.device.type == "cuda"
     assert Film.create(4, 4).accum.device.type == "cuda"
+
+
+def _zero_grad(out, x):
+    (g,) = torch.autograd.grad(out, x, retain_graph=True,
+                               materialize_grads=True, allow_unused=True)
+    return not bool(g.any())
+
+
+def test_kernel_functions_keep_their_bits_and_give_zero_gradients(cuda):
+    """Every kernel through its zero-gradient Function on the card, with
+    inputs that require grad: the launch counts, the outputs of the
+    kernel (bit for bit for B1, B2 and B5, B3 and B4 at their rtol
+    against the plain versions) and zero gradients."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    scene, _ = get_scene_by_name("CornellSmall", cuda)
+    tris, occ = dense_tables(scene)
+    o, d, tmin, tmax = rays(4096, 1, cuda)
+    og = o.clone().requires_grad_()
+    before = (ik.closest_hit_tris.launches, ik.occluded_tris.launches)
+    got = ik.closest_hit_tris(og, d, tmin, tmax, tris)
+    hit = ik.occluded_tris(og, d, tmin, tmax, occ)
+    assert (ik.closest_hit_tris.launches,
+            ik.occluded_tris.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, ik.closest_hit_tris_plain(o, d, tmin, tmax, tris)):
+        assert torch.equal(a, b)
+    assert torch.equal(hit, ik.occluded_tris_plain(o, d, tmin, tmax, occ))
+    assert got[0].requires_grad and not hit.requires_grad
+    assert _zero_grad((got[0] + got[2]).sum(), og)
+
+    bscene, _ = get_scene_by_name("Atrium:0.1", cuda)
+    o, d, tmin, tmax = chip_smoke._rays(4096, 2, bscene.aabb_min.tolist(),
+                                        bscene.aabb_max.tolist(), cuda)
+    og = o.clone().requires_grad_()
+    got = bk.traverse(bscene.bvh, og, d, tmin, tmax)
+    for a, b in zip(got, bk.traverse_plain(bscene.bvh, o, d, tmin, tmax)):
+        assert torch.equal(a, b)
+    assert torch.equal(bk.traverse_any(bscene.bvh, og, d, tmin, tmax),
+                       bk.traverse_any_plain(bscene.bvh, o, d, tmin, tmax))
+    assert _zero_grad(got[0].sum(), og)
+
+    grid, q, qn, r = chip_smoke.gather_case(cuda)
+    qg = q.clone().requires_grad_()
+    u = torch.zeros((2, gk.ROWS + 2), device=cuda)
+    before = gk.gather_photons_tiled.launches
+    acc, _ = gk.gather_photons_tiled(grid, qg, qn, r, u_rows=u)
+    assert gk.gather_photons_tiled.launches == before + 1
+    want, _ = gk.gather_photons_tiled(chip_smoke._to(grid, "cpu"), q.cpu(),
+                                      qn.cpu(), r, u_rows=u.cpu())
+    np.testing.assert_allclose(acc.detach().cpu().numpy(), want.numpy(),
+                               rtol=chip_smoke.GATHER_RTOL,
+                               atol=chip_smoke.GATHER_ATOL_REL
+                               * float(want.abs().max()))
+    assert acc.requires_grad and _zero_grad(acc.sum(), qg)
+
+    scene, cfg, k = chip_smoke.vm_case(cuda)
+    kd = k["cam_bsdf"].kd.clone().requires_grad_()
+    k = dict(k, cam_bsdf=dataclasses.replace(k["cam_bsdf"], kd=kd))
+    before = vk.merge_vertices_tiled.launches
+    merged = vcm_merge(scene, cfg, k)
+    assert vk.merge_vertices_tiled.launches == before + 1
+    want = vcm_merge(*(chip_smoke._to(x, "cpu") for x in (
+        scene, cfg, dict(k, cam_bsdf=dataclasses.replace(
+            k["cam_bsdf"], kd=kd.detach())))))
+    np.testing.assert_allclose(merged.detach().cpu().numpy(), want.numpy(),
+                               rtol=chip_smoke.VM_RTOL,
+                               atol=chip_smoke.VM_ATOL_REL
+                               * float(want.abs().max()))
+    assert float(merged.detach().sum()) > 0
+    assert _zero_grad(merged.sum(), kd)
+
+
+@pytest.mark.parametrize("method,rel", [
+    (RenderMethod.PATH_TRACING, 1e-3),
+    (RenderMethod.PROGRESSIVE_PHOTON_MAPPING, 5e-3)])
+def test_gradients_on_the_card_match_the_cpu(cuda, method, rel):
+    """The kd gradient of one 32^2 iteration (PPM: the tile gather, B3's
+    zero gradient) on the card and on the CPU."""
+    from oppositerenderer_tpu_torch import diff
+    cfg = RenderConfig(width=32, height=32, render_method=method,
+                       photons_per_iteration=1 << 12,
+                       photon_grid_resolution=16)
+    grads = []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        _, g = diff.render_loss_and_grad(
+            lambda s: Renderer(s, cam, cfg, seed=1)._iteration(0, 0.003)[0],
+            scene, {("kd", 0): scene.materials.kd[0]})
+        grads.append(g[("kd", 0)].cpu().numpy())
+    assert (grads[0] > 0).all()
+    np.testing.assert_allclose(grads[1], grads[0], rtol=rel)
+
+
+def test_ppm_with_a_medium_on_the_card_matches_the_cpu(cuda):
+    from oppositerenderer_tpu_torch.scene import Medium
+    cfg = RenderConfig(width=32, height=32, photons_per_iteration=1 << 12,
+                       photon_grid_resolution=16,
+                       render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING)
+    imgs, vols = [], []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        scene.medium = Medium(
+            sigma_s=torch.tensor(0.15, device=dev),
+            sigma_a=torch.tensor(0.02, device=dev),
+            aabb_min=torch.zeros(3, device=dev),
+            aabb_max=torch.full((3,), 2.5, device=dev))
+        r = Renderer(scene, cam, cfg, seed=7)
+        imgs.append(r.render(1).mean_radiance().cpu().numpy())
+        vols.append(r.metrics["volumetric_photons_stored"])
+    share, mean_err = chip_smoke.image_agreement(imgs[1], imgs[0])
+    assert share >= chip_smoke.PPM_MIN_AGREEING
+    assert mean_err <= chip_smoke.PPM_MEAN_RTOL
+    assert vols[1] == pytest.approx(vols[0], rel=1e-3) and vols[0] > 0

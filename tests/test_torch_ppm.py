@@ -41,6 +41,7 @@ from oppositerenderer_tpu_torch.integrators import ppm  # noqa: E402
 from oppositerenderer_tpu_torch.integrators.common import (  # noqa: E402
     pixel_coords, scene_epsilon)
 from oppositerenderer_tpu_torch.renderer import Renderer  # noqa: E402
+from oppositerenderer_tpu_torch.scene import Medium  # noqa: E402
 from oppositerenderer_tpu_torch.scene import get_scene_by_name  # noqa: E402
 
 torch.set_num_threads(2)
@@ -159,7 +160,7 @@ def test_trace_photon_pass_matches_jax():
         jnp.arange(n, dtype=jnp.int32)))(
             js, jrng.iteration_key(jrng.make_root_key(SEED), 0,
                                    ppm.PASS_PPM_PHOTON))
-    got, gst = ppm.trace_photon_pass(
+    got, _, gst = ppm.trace_photon_pass(
         ts, port_cfg(), iteration_key(make_root_key(SEED), 0,
                                       ppm.PASS_PPM_PHOTON),
         scene_epsilon(ts), torch.arange(n))
@@ -232,10 +233,14 @@ def test_later_slices_raise():
         photon_map_structure=PhotonMapStructure.STOCHASTIC_HASH)
     with pytest.raises(NotImplementedError, match="later slice"):
         r.render(1)
+    # a medium no longer raises (tests/test_torch_media.py)
     r = small_renderer()
-    r.scene.medium = object()
-    with pytest.raises(NotImplementedError, match="media slice"):
-        r.render(1)
+    r.scene.medium = Medium(sigma_s=torch.tensor(0.15),
+                            sigma_a=torch.tensor(0.02),
+                            aabb_min=torch.zeros(3),
+                            aabb_max=torch.full((3,), 2.5))
+    assert bool(torch.isfinite(r.render(1).mean_radiance()).all())
+    assert r.metrics["volumetric_photons_stored"] > 0
 
 
 def test_chip_smoke_configs_are_the_jax_ones():

@@ -80,17 +80,21 @@ def test_scene_and_camera_fields_match_jax(name):
 
 
 def test_unknown_and_later_slice_inputs_raise():
-    """Scene files and media belong to later slices of the port; Atrium,
-    Conference and textured scenes are in (tests/test_torch_bvh_scenes.py,
-    tests/test_torch_texture.py)."""
+    """Scene files belong to a later slice of the port; Atrium,
+    Conference, textured scenes and media are in
+    (tests/test_torch_bvh_scenes.py, tests/test_torch_texture.py,
+    tests/test_torch_media.py)."""
     with pytest.raises(NotImplementedError, match="scene-import slice"):
         get_scene_by_name("sponza.dae", "cpu")
     jl = leaves(jax_scene("CornellSmall")[0])
     jl["textures"] = np.zeros((1, 4, 4, 3), np.float32)
     assert interop.scene_from_numpy(jl, "cpu").has_textures
-    jl["medium"] = {"sigma_s": np.float32(0.5)}
-    with pytest.raises(NotImplementedError, match="media slice"):
-        interop.scene_from_numpy(jl, "cpu")
+    jl["medium"] = {"sigma_s": np.float32(0.5), "sigma_a": np.float32(0.25),
+                    "aabb_min": np.zeros(3, np.float32),
+                    "aabb_max": np.full(3, 2.5, np.float32)}
+    medium = interop.scene_from_numpy(jl, "cpu").medium
+    assert float(medium.sigma_t) == 0.75
+    assert medium.aabb_max.tolist() == [2.5] * 3
     with pytest.raises(ValueError):
         interop.key_from_numpy(np.zeros(3, np.uint32))
 
