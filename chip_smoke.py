@@ -21,8 +21,9 @@ and the script exits non-zero without printing the result line:
                  ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``
                  and ``csrc/bvh.cu`` for sm_90a, and one more links them into
                  one library; prints its cache key, the build time and
-                 ptxas' registers and spills. Then g++ must build the host
-                 BVH builder (``native/bvh_builder.cpp``).
+                 ptxas' registers and spills. Then g++ must build the
+                 host libraries (``native/bvh_builder.cpp``,
+                 ``kdtree_builder.cpp``, ``text_scan.cpp``).
 3. kernels     - each kernel against its plain PyTorch version on the same
                  CUDA tensors. B1 and B2 (random rays from a numpy seed, at
                  the PT path's shape and beyond; both on tables of 32 and
@@ -128,10 +129,36 @@ and the script exits non-zero without printing the result line:
                  iteration.
 16. conference-main - the same on Conference (184,714 triangles) at
                  1024x1024, 2 iterations a rep.
+17. import-parity - the three native libraries (BVH builder, kd-tree
+                 builder, text scanner) must load; the loader on the card
+                 against the loader on the CPU, array for array, for
+                 ``scenes/atrium_lite.dae`` (8,098 triangles, above the BVH
+                 threshold) and tests/test_import.py's DAE (5 triangles);
+                 one 64^2 PT iteration of each, card against CPU, at
+                 phase 7's bar: the first runs B5 only, the second B1 and
+                 B2 only.
+18. import-main - milestone4_torch.py's cases: Atrium and Conference
+                 exported at full detail to .dae files under
+                 chiprun_out/scenes/, imported from them, PPM and VCM at
+                 1024x1024 with the default RenderConfig (2^20 photons;
+                 L = 10, no merging): one warm-up, two timed iterations;
+                 per iteration B5 16 + 4 (PPM) or 19 + 19 (VCM), B3 1
+                 (PPM), B1 and B2 never. B3 on the flagship PPM's gather
+                 against its plain version, timed and bounded; B5 on every
+                 traversal call of one PPM and one VCM iteration of each,
+                 bit for bit on a lane sample, timed, summed per iteration.
+19. photon-maps - ppm-main's configuration with the stochastic hash and
+                 with the CPU kd-tree: one warm-up, 3 timed reps of 2
+                 iterations, B1 2 x 16, B2 2 x 4 and B3 no launch a rep;
+                 the structure's build timed in one more iteration, and
+                 one more profiled; the
+                 image mean against the grid's at the same seed within the
+                 JAX package's bars (the hash's within 25%, the kd-tree's
+                 within 5%); the mean |difference| per pixel printed.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 8b, 11, 12, 15 and 16), errors, times and bounds; the
-last line is ``{"ok": true, "device": {...}}``.
+the main phases (5, 8, 8b, 11, 12, 15, 16, 18 and 19), errors, times and
+bounds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -230,6 +257,25 @@ PLAIN_BVH_REPS = 3
 SOUP_TRIS = 4096
 SOUP_BOX = ([0.0] * 3, [10.0] * 3)
 
+# phases import-*: the repo's Collada file (8,098 triangles, above the BVH
+# threshold: B5) and tests/test_import.py's DAE (5 triangles: B1 and B2),
+# seen from tests/test_import.py's camera (eye, look-at, field of view)
+ATRIUM_LITE = REPO / "scenes" / "atrium_lite.dae"
+IMPORT_PARITY_SIZE = 64
+SMALL_DAE_CAMERA = ((0.5, 1.2, 4.0), (0.5, 0.8, 0.0), 50.0)
+# import-main: B5 on every traversal call of a flagship iteration, each
+# call held bit for bit on a sample of at most this many lanes and timed
+# over this many replays (a camera bounce's shadow rays are 10 x 2^20)
+FLAGSHIP_SAMPLE_LANES = 131072
+FLAGSHIP_TIMING_REPS = 5
+# photon-maps: ppm-main's configuration, PHOTON_MAP_ITERS iterations a rep;
+# the image mean against the grid's at the JAX package's bars: the hash's
+# within 25% (tests/test_ppm.py:93-107), the kd-tree's within 5%
+# (tests/test_photon_map.py:167-194)
+PHOTON_MAP_ITERS = 2
+HASH_MEAN_RTOL = 0.25
+KD_MEAN_RTOL = 0.05
+
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and FP32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -259,6 +305,89 @@ KERNEL_SOURCES = {
     "traverse": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
 }
+
+
+# tests/test_import.py's DAE (a quad, a glass triangle moved by a node's
+# translate, an emissive lamp), word for word
+SMALL_DAE = """<?xml version="1.0" encoding="utf-8"?>
+<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">
+  <asset><up_axis>Y_UP</up_axis></asset>
+  <library_effects>
+    <effect id="fx-white"><profile_COMMON><technique sid="common">
+      <lambert><diffuse><color>0.8 0.7 0.6 1</color></diffuse></lambert>
+    </technique></profile_COMMON></effect>
+    <effect id="fx-glass"><profile_COMMON><technique sid="common">
+      <phong><diffuse><color>1 1 1 1</color></diffuse>
+      <index_of_refraction><float>1.5</float></index_of_refraction></phong>
+    </technique></profile_COMMON></effect>
+    <effect id="fx-glow"><profile_COMMON><technique sid="common">
+      <lambert><emission><color>2 2 2 1</color></emission>
+      <diffuse><color>1 1 1 1</color></diffuse></lambert>
+    </technique></profile_COMMON></effect>
+  </library_effects>
+  <library_materials>
+    <material id="white"><instance_effect url="#fx-white"/></material>
+    <material id="glassy"><instance_effect url="#fx-glass"/></material>
+    <material id="glow"><instance_effect url="#fx-glow"/></material>
+  </library_materials>
+  <library_geometries>
+    <geometry id="quad"><mesh>
+      <source id="qp"><float_array id="qpa" count="12">
+        0 0 0  1 0 0  1 1 0  0 1 0</float_array>
+        <technique_common><accessor source="#qpa" count="4" stride="3">
+          <param name="X" type="float"/><param name="Y" type="float"/>
+          <param name="Z" type="float"/></accessor></technique_common>
+      </source>
+      <vertices id="qv"><input semantic="POSITION" source="#qp"/></vertices>
+      <triangles material="m0" count="2">
+        <input semantic="VERTEX" source="#qv" offset="0"/>
+        <p>0 1 2 0 2 3</p>
+      </triangles>
+    </mesh></geometry>
+    <geometry id="tri"><mesh>
+      <source id="tp"><float_array id="tpa" count="9">
+        2 0 0  3 0 0  2 1 0</float_array>
+        <technique_common><accessor source="#tpa" count="3" stride="3">
+          <param name="X" type="float"/><param name="Y" type="float"/>
+          <param name="Z" type="float"/></accessor></technique_common>
+      </source>
+      <vertices id="tv"><input semantic="POSITION" source="#tp"/></vertices>
+      <triangles material="m1" count="1">
+        <input semantic="VERTEX" source="#tv" offset="0"/>
+        <p>0 1 2</p>
+      </triangles>
+    </mesh></geometry>
+    <geometry id="lamp"><mesh>
+      <source id="lp"><float_array id="lpa" count="12">
+        0 2 0  1 2 0  1 2 1  0 2 1</float_array>
+        <technique_common><accessor source="#lpa" count="4" stride="3">
+          <param name="X" type="float"/><param name="Y" type="float"/>
+          <param name="Z" type="float"/></accessor></technique_common>
+      </source>
+      <vertices id="lv"><input semantic="POSITION" source="#lp"/></vertices>
+      <triangles material="m2" count="2">
+        <input semantic="VERTEX" source="#lv" offset="0"/>
+        <p>0 1 2 0 2 3</p>
+      </triangles>
+    </mesh></geometry>
+  </library_geometries>
+  <library_visual_scenes><visual_scene id="vs">
+    <node id="n1"><instance_geometry url="#quad">
+      <bind_material><technique_common>
+        <instance_material symbol="m0" target="#white"/>
+      </technique_common></bind_material></instance_geometry></node>
+    <node id="n2"><translate>0 0 1</translate>
+      <instance_geometry url="#tri"><bind_material><technique_common>
+        <instance_material symbol="m1" target="#glassy"/>
+      </technique_common></bind_material></instance_geometry></node>
+    <node id="n3"><instance_geometry url="#lamp">
+      <bind_material><technique_common>
+        <instance_material symbol="m2" target="#glow"/>
+      </technique_common></bind_material></instance_geometry></node>
+  </visual_scene></library_visual_scenes>
+  <scene><instance_visual_scene url="#vs"/></scene>
+</COLLADA>
+"""
 
 
 def golden_pt_config():
@@ -458,14 +587,16 @@ def phase_build() -> None:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
             print(f"[build] {line.strip()}")
-    # the host BVH builder: g++ at first use, as on a user's machine; the
-    # numpy fallback would build another tree
+    # the host libraries: g++ at first use, as on a user's machine; the
+    # numpy and Python fallbacks would build other trees, and slowly
     from oppositerenderer_tpu_torch import native
-    t0 = time.perf_counter()
-    if native.get_lib() is None:
-        raise RuntimeError("g++ could not build native/bvh_builder.cpp")
-    print(f"[build] host BVH builder {native._library_path().name} ready in "
-          f"{time.perf_counter() - t0:.2f} s (g++ {' '.join(native.GXX_FLAGS)})")
+    for stem in native.STEMS:
+        t0 = time.perf_counter()
+        if native.load(stem) is None:
+            raise RuntimeError(f"g++ could not build native/{stem}.cpp")
+        print(f"[build] host library {native.library_path(stem).name} ready "
+              f"in {time.perf_counter() - t0:.2f} s (g++ "
+              f"{' '.join(native.GXX_FLAGS)})")
 
 
 def _rays(n: int, seed: int, box_lo, box_hi, dev):
@@ -843,20 +974,23 @@ def scene_medium(dev):
                   aabb_max=torch.full((3,), MEDIUM_BOX, device=dev))
 
 
-def ppm_gather_inputs(dev, medium: bool = False):
-    """The tile gather's inputs in one CornellSmall 512^2 PPM iteration
-    (iteration 0, seed 0, the bench's PPM configuration; with ``medium``,
-    in :func:`scene_medium`), recorded where
+def ppm_gather_inputs(dev, medium: bool = False, scene=None, cam=None,
+                      cfg=None):
+    """The tile gather's inputs in one PPM iteration (iteration 0, seed 0)
+    of ``scene`` seen from ``cam`` with ``cfg``, by default CornellSmall at
+    512^2 with the bench's PPM configuration (with ``medium``, in
+    :func:`scene_medium`), recorded where
     ``integrators/ppm.render_iteration`` calls the gather: (grid,
     tile-ordered hitpoint positions and normals, radius, u_rows, found)."""
     from oppositerenderer_tpu_torch.integrators import ppm
     from oppositerenderer_tpu_torch.renderer import Renderer
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
 
-    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    if scene is None:
+        scene, cam = get_scene_by_name(MAIN_SCENE, dev)
     if medium:
         scene.medium = scene_medium(dev)
-    r = Renderer(scene, cam, ppm_main_config(), seed=0)
+    r = Renderer(scene, cam, cfg or ppm_main_config(), seed=0)
     calls = []
     gather = ppm.gather_photons_tiled
 
@@ -1880,7 +2014,7 @@ def profile_iteration(r, tag: str) -> None:
     by_name: dict[str, list] = {}
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
-        if e.name.startswith(("vcm_", "pt_")):
+        if e.name.startswith(("vcm_", "pt_", "ppm_")):
             if e.device_type == torch.autograd.DeviceType.CPU:
                 ranges[e.name] = ranges.get(e.name, 0.0) + ms
         elif e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2036,6 +2170,346 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
     save_png(film, png)
     print(f"[{tag}] image mean {float(img.mean()):.5f}, saved {png}")
     profile_iteration(r, tag)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# scene import and PPM's other photon maps
+def record_differences(a, b, path: str = "") -> list[str]:
+    """Fields of two records (dataclasses of tensors, nested) that differ:
+    tensors compared on the host bit for bit (float32 through its int32
+    bits, so NaN-coded BVH rows compare too), other values by equality."""
+    if dataclasses.is_dataclass(a):
+        return [d for f in dataclasses.fields(a) for d in record_differences(
+            getattr(a, f.name), getattr(b, f.name), f"{path}{f.name}.")]
+    if torch.is_tensor(a):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [path.rstrip(".")]
+    return [] if a == b else [path.rstrip(".")]
+
+
+def small_dae_file() -> Path:
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_")) / "test.dae"
+    path.write_text(SMALL_DAE)
+    return path
+
+
+def phase_import_parity(dev) -> None:
+    """The loader on the card against the loader on the CPU, array for
+    array, for the repo's Collada file (above the BVH threshold: B5) and
+    tests/test_import.py's DAE (below it: B1, B2); then one 64^2 PT
+    iteration of each, card against CPU, at ppm-parity's bar. All three
+    native libraries must load: the text scanner parses the payloads."""
+    from oppositerenderer_tpu_torch import native
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.camera import Camera
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import (LAST_LOAD_PHASES,
+                                                  get_scene_by_name)
+    missing = [s for s in native.STEMS if native.load(s) is None]
+    if missing:
+        raise AssertionError(f"native libraries not loaded: {missing}")
+    print("[import-parity] native libraries loaded: " + ", ".join(
+        native.library_path(s).name for s in native.STEMS))
+    small = small_dae_file()
+
+    def atrium_camera(d):
+        return get_scene_by_name("Atrium:0.1", d)[1]
+
+    def small_camera(d):
+        eye, lookat, fov = SMALL_DAE_CAMERA
+        return Camera.make(eye, lookat, hfov=fov, vfov=fov, device=d)
+
+    wrappers = (bk.traverse, bk.traverse_any, ik.closest_hit_tris,
+                ik.occluded_tris)
+    cfg = RenderConfig(width=IMPORT_PARITY_SIZE, height=IMPORT_PARITY_SIZE)
+    for label, path, camera, launched in (
+            ("atrium_lite.dae", ATRIUM_LITE, atrium_camera,
+             {"traverse", "traverse_any"}),
+            ("tests/test_import.py DAE", small, small_camera,
+             {"closest_hit_tris", "occluded_tris"})):
+        loaded, imgs, counts = [], [], {}
+        for d in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            scene, fcam = get_scene_by_name(str(path), d)
+            load_s = time.perf_counter() - t0
+            loaded.append((scene, fcam, dict(LAST_LOAD_PHASES), load_s))
+            for w in wrappers:
+                w.launches = 0
+            r = Renderer(scene, camera(d), cfg, seed=GOLDEN_SEED)
+            imgs.append(r.render(1).mean_radiance().cpu().numpy())
+            if d.type == "cuda":
+                counts = {w.__name__: w.launches for w in wrappers}
+        (gs, gcam, phases, load_s), (cs, ccam, _, _) = loaded
+        diff = record_differences(gs, cs) + record_differences(gcam, ccam)
+        if diff or gs.device != dev or gcam.eye.device != dev:
+            raise AssertionError(f"{label}: the card's import differs from "
+                                 f"the CPU's in {diff}")
+        ran = {k for k, c in counts.items() if c > 0}
+        share, mean_err = image_agreement(*imgs)
+        print(f"[import-parity] {label}: {gs.geometry.n_triangles} "
+              f"triangles, {gs.materials.kind.shape[0]} materials, "
+              f"{gs.lights.n_lights} lights, {int(gs.textures.shape[0])} "
+              f"textures, BVH "
+              f"{'none' if gs.bvh is None else tuple(gs.bvh.rows.shape)}; "
+              f"loaded in {load_s:.3f} s ("
+              + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+              + "); every array equal to the CPU's; PT "
+              f"{cfg.width}x{cfg.height}, one iteration: {share:.4%} of the "
+              f"pixels within rtol {PPM_PIXEL_RTOL} of the CPU port's, image "
+              f"mean off by {mean_err:.2e}; launches {counts}")
+        if (not np.isfinite(imgs[0]).all() or share < PPM_MIN_AGREEING
+                or mean_err > PPM_MEAN_RTOL or float(imgs[1].mean()) <= 0.0):
+            raise AssertionError(f"{label}: PT on the card differs from the "
+                                 "CPU port")
+        if ran != launched:
+            raise AssertionError(f"{label}: kernels {sorted(ran)} launched, "
+                                 f"expected {sorted(launched)}")
+
+
+def flagship_b3(dev, scene, cam, cfg, label: str) -> dict:
+    """B3 on the gather of one flagship PPM iteration: against its plain
+    version (rtol GATHER_RTOL + GATHER_ATOL_REL max|ref|), timed, bounded."""
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    grid, q, qn, r, u, valid = ppm_gather_inputs(dev, scene=scene, cam=cam,
+                                                 cfg=cfg)
+    starts, lens, weights, visited, total, rows = gk._tile_tables(
+        grid, q, r, u, valid)
+    r2 = torch.square(torch.as_tensor(r, dtype=torch.float32, device=dev))
+    args = (starts, lens, weights, rows, r2, q, qn, grid, True)
+    got = gk.gather_photons_tiled_kernel(*args)
+    want = gk.gather_photons_tiled_plain(*args)
+    err = (got.double() - want.double()).abs()
+    scale = float(want.abs().max())
+    bad = int((err > GATHER_RTOL * want.double().abs()
+               + GATHER_ATOL_REL * scale).sum())
+    if bad or not bool(torch.isfinite(got).all()) or scale <= 0.0:
+        raise AssertionError(f"B3 differs from its plain version on {label}:"
+                             f" {bad} sums outside the tolerance")
+    n_q, n_p = q.shape[0], grid.position.shape[0]
+    pairs = query_pairs(grid, q, r, starts, lens)
+    out = bound(covered_rows(starts, lens, n_p) * 36 + n_q * (24 + 12)
+                + starts.numel() * 16, pairs * PAIR_FLOPS)
+    out.update(calls=1, max_abs_err=float(err.max()),
+               ms=cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args)),
+               plain_ms=cuda_ms(lambda: gk.gather_photons_tiled_plain(*args),
+                                reps=PLAIN_GATHER_REPS, warmup=1, batch=1,
+                                graph=False))
+    print(f"[import-main] B3 {label}: queries={n_q} photons={n_p} (valid "
+          f"{int(grid.n_valid)}), tiles {starts.shape[0]}, visited "
+          f"{int(visited.sum())}, pairs needed {pairs}; sums within "
+          f"tolerance (max |err| {out['max_abs_err']:.3g}, max |ref| "
+          f"{scale:.4g}); ms kernel {out['ms']:.4f} / plain "
+          f"{out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} "
+          f"({out['bound_by']})")
+    return out
+
+
+def flagship_b5(dev, scene, cam, cfg, label: str) -> dict:
+    """B5 on every traversal call of one flagship iteration: each call's
+    results against its plain version, bit for bit, on a 1-in-k sample of
+    its lanes (at most FLAGSHIP_SAMPLE_LANES; each ray is traversed alone,
+    so a sample checks the call's bits where it falls); each call timed
+    (median of FLAGSHIP_TIMING_REPS graph replays); its bound from the
+    sample's counts, scaled to the call's lanes (the rows are those the
+    sample read: a lower bound). Returns per kernel the summed calls, ms
+    and bound."""
+    from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
+    calls = iteration_calls(scene, cam, cfg, ("traverse", "traverse_any"))
+    out = {}
+    for k, ks in calls.items():
+        any_hit = k == "traverse_any"
+        fn = getattr(bk, k)
+        acc = {"calls": 0, "lanes": 0, "ms": 0.0, "bound_ms": 0.0}
+        for i, (bvh, o, d, tmin, tmax) in enumerate(ks):
+            n = o.shape[0]
+            step = -(-n // FLAGSHIP_SAMPLE_LANES)
+            got = fn(bvh, o, d, tmin, tmax)
+            sample = torch.arange(0, n, step, device=dev)
+            t, prim, u, v, found, visits, row_floats = bk.plain_traversal(
+                bvh, o[sample], d[sample], tmin[sample], tmax[sample],
+                any_hit)
+            want = (found,) if any_hit else (t, prim, u, v, found)
+            got = (got,) if any_hit else got
+            bad = sum(_bits_differ(a[sample], b) for a, b in zip(got, want))
+            if bad:
+                raise AssertionError(f"B5 {k} differs from its plain version "
+                                     f"on {label} call {i} in {bad} values")
+            scale = n / sample.shape[0]
+            b = bound(n * (32 + (1 if any_hit else 17))
+                      + 4 * int(row_floats.sum()),
+                      scale * (float(visits[:, 2].sum()) * SLAB_FLOPS
+                               + float(visits[:, 3].sum()) * MT_FLOPS))
+            ms = cuda_ms(lambda: fn(bvh, o, d, tmin, tmax),
+                         reps=FLAGSHIP_TIMING_REPS, batch=2)
+            acc["calls"] += 1
+            acc["lanes"] += n
+            acc["ms"] += ms
+            acc["bound_ms"] += b["bound_ms"]
+        print(f"[import-main] B5 {k} per {label} iteration: {acc['calls']} "
+              f"launches over {acc['lanes']} lanes, equal bit for bit on "
+              f"1-in-k samples, {acc['ms']:.4f} ms, bound "
+              f"{acc['bound_ms']:.4f} ms")
+        out[k] = acc
+    return out
+
+
+def check_flagship_launches(label: str, cfg, got: dict) -> None:
+    """A BVH scene's launches per iteration: B5 once per eye and photon
+    bounce and once per direct shadow sample, and B3 once (PPM); B5 once
+    per light and camera bounce and once per light bounce's and camera
+    bounce's shadow rays (VCM, no merging); B1 and B2 never."""
+    from oppositerenderer_tpu_torch.config import RenderMethod
+    if cfg.render_method == RenderMethod.PROGRESSIVE_PHOTON_MAPPING:
+        expected = {"traverse": (cfg.max_radiance_trace_depth
+                                 + cfg.max_photon_trace_depth),
+                    "traverse_any": cfg.ppm_direct_shadow_samples,
+                    "gather_photons_tiled": 1}
+    else:
+        L = cfg.vcm_max_path_length
+        expected = {"traverse": 2 * L - 1, "traverse_any": (L - 1) + L,
+                    "gather_photons_tiled": 0}
+    expected.update(closest_hit_tris=0, occluded_tris=0)
+    if got != {k: float(v) for k, v in expected.items()}:
+        raise AssertionError(f"{label}: launches per iteration {got}, "
+                             f"expected {expected}")
+
+
+def phase_import_main(dev, kernels: dict) -> dict:
+    """milestone4_torch.py's Atrium and Conference cases: each scene
+    exported at full detail, imported from its .dae, PPM and VCM at
+    1024^2 (one warm-up, two timed iterations) with the launches of each
+    timed iteration checked; then B3 on the flagship PPM's gather and B5
+    on every call of one PPM and one VCM iteration, added to ``kernels``'
+    per-iteration figures. Returns the timed iterations' launches."""
+    import milestone4_torch as m4
+    launches = {k: 0 for k in KERNELS}
+    for base in m4.SCENES:
+        record, scene, cam = m4.run_case(base, dev)
+        print(f"[import-main] {json.dumps(record)}")
+        if (record["triangles"] != record["factory_triangles"]
+                or scene.bvh is None
+                or scene.bvh.builder != "native"):
+            raise AssertionError(f"{base}: the import lost triangles or "
+                                 "its native BVH")
+        for method in m4.METHODS:
+            rec = record[method]
+            cfg = m4.method_config(method, m4.SIZE)
+            check_flagship_launches(f"{base} {method}", cfg,
+                                    rec["launches_per_iteration"])
+            if not rec["image_finite"] or rec["image_mean"] <= 0.0:
+                raise AssertionError(f"{base} {method}: the image is not "
+                                     "finite and positive")
+            for k, c in rec["launches"].items():
+                launches[k] += c
+            label = f"{base} import {m4.SIZE}^2 {method.upper()}"
+            if method == "ppm":
+                b3 = flagship_b3(dev, scene, cam, cfg, label)
+                k3 = kernels["gather_photons_tiled"]
+                k3["max_abs_err"] = max(k3["max_abs_err"],
+                                        b3["max_abs_err"])
+                k3.setdefault("per_iteration", {})[label] = b3
+            for k, acc in flagship_b5(dev, scene, cam, cfg, label).items():
+                kernels[k]["per_iteration"][label] = acc
+        # the exports are rebuilt from the factories: keep chiprun_out small
+        dae = REPO / record["asset"]
+        for f in (dae, *dae.parent.glob(f"{dae.stem}_tex*.png")):
+            f.unlink()
+        del scene
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_photon_maps(dev) -> dict:
+    """PPM main's configuration with the stochastic hash and with the CPU
+    kd-tree: one warm-up render, MAIN_REPS timed reps of PHOTON_MAP_ITERS
+    iterations (B1 and B2 as on the grid, B3 never); one more iteration
+    times the structure's build, and one more is profiled; the image of
+    the last rep against the
+    grid's at the same seed and iterations: its mean within the JAX
+    package's bars. The mean |difference| per pixel is printed, not held:
+    at this size the grid's tile gather subsamples its rows and the
+    kd-tree's lanes overrun their 512 visits, where the JAX test's 24^2
+    iteration with 2,048 photons does neither (tests/test_torch_photon_maps.py
+    holds that bar there)."""
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
+    from oppositerenderer_tpu_torch.config import PhotonMapStructure
+    from oppositerenderer_tpu_torch.integrators import ppm
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    base = ppm_main_config()
+    grid = Renderer(scene, cam, base, seed=0).render(
+        PHOTON_MAP_ITERS).mean_radiance().double()
+    wrappers = (ik.closest_hit_tris, ik.occluded_tris,
+                gk.gather_photons_tiled)
+    expected = {
+        "closest_hit_tris": PHOTON_MAP_ITERS * (base.max_radiance_trace_depth
+                                                + base.max_photon_trace_depth),
+        "occluded_tris": PHOTON_MAP_ITERS * base.ppm_direct_shadow_samples,
+        "gather_photons_tiled": 0}
+    launches = {w.__name__: 0 for w in wrappers}
+    for structure, builder in (
+            (PhotonMapStructure.STOCHASTIC_HASH, "build_stochastic_hash"),
+            (PhotonMapStructure.KD_TREE_CPU, "build_photon_kdtree")):
+        tag = f"photon-maps {structure.name}"
+        r = Renderer(scene, cam, base.replace(photon_map_structure=structure),
+                     seed=0)
+        r.render(PHOTON_MAP_ITERS)
+        got, times, film = timed_reps(r, PHOTON_MAP_ITERS, wrappers,
+                                      expected, tag)
+        for k, c in got.items():
+            launches[k] += c
+        per_it = {k: v / PHOTON_MAP_ITERS for k, v in r.metrics.items()
+                  if k in ("photons_stored", "photons_visited",
+                           "kd_overrun")}
+        img = film.mean_radiance().double()
+        # the build alone, in one more iteration
+        build = getattr(ppm, builder)
+        build_s = []
+
+        def timed_build(*args, build=build, build_s=build_s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = build(*args)
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t0)
+            return out
+
+        setattr(ppm, builder, timed_build)
+        try:
+            r.compute_iteration(0)
+        finally:
+            setattr(ppm, builder, build)
+        med = statistics.median(times)
+        mean_rel = abs(float(img.mean() / grid.mean()) - 1.0)
+        mean_abs = float((img - grid).abs().mean() / grid.abs().mean())
+        print(f"[{tag}] {MAIN_SCENE} {MAIN_SIZE}x{MAIN_SIZE}, "
+              f"{base.photons_per_iteration} photons: ms/iter median "
+              f"{med / PHOTON_MAP_ITERS * 1e3:.3f}, min "
+              f"{min(times) / PHOTON_MAP_ITERS * 1e3:.3f}, spread "
+              f"{(max(times) - min(times)) / med:.4f}; build "
+              f"{build_s[0]:.4f} s an iteration; per iteration: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in per_it.items())
+              + f"; against the grid's image ({PHOTON_MAP_ITERS} iterations,"
+              f" seed 0): mean off by {mean_rel:.4f}, mean |difference| "
+              f"{mean_abs:.4f} of the mean")
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise AssertionError(f"{tag}: the image is not finite and "
+                                 "positive")
+        bar = (HASH_MEAN_RTOL if structure == PhotonMapStructure.STOCHASTIC_HASH
+               else KD_MEAN_RTOL)
+        if mean_rel > bar:
+            raise AssertionError(f"{tag}: image mean {mean_rel:.4f} off the "
+                                 f"grid's (bound {bar})")
+        profile_iteration(r, tag)
     return launches
 
 
@@ -2327,6 +2801,11 @@ def main() -> int:
              CONFERENCE_ITERS)):
         for k, c in timed(tag, phase_bvh_main, dev, tag, scene_name, size,
                           iters).items():
+            launches[k] += c
+    timed("import-parity", phase_import_parity, dev)
+    for phase, args in (("import-main", (phase_import_main, dev, kernels)),
+                        ("photon-maps", (phase_photon_maps, dev))):
+        for k, c in timed(phase, *args).items():
             launches[k] += c
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],

@@ -28,9 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="opposite-torch",
         description="Progressive renderer on PyTorch/CUDA")
     p.add_argument("--scene", default="CornellSmall",
-                   help="built-in scene: a Cornell scene, Atrium or "
-                        "Conference (Atrium:<detail>, Conference:<detail> "
-                        "scale the triangle count)")
+                   help="a built-in scene (a Cornell scene, Atrium or "
+                        "Conference; Atrium:<detail>, Conference:<detail> "
+                        "scale the triangle count) or a .dae/.obj file")
     p.add_argument("--method", default="vcm", choices=["pt", "ppm", "vcm"],
                    help="render method")
     p.add_argument("--size", type=int, default=512,

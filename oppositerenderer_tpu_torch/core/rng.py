@@ -13,6 +13,7 @@ which is how keys are derived on the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -93,6 +94,19 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = (x0 + ks[(d + 1) % 3]) & MASK32
         x1 = (x1 + ks[(d + 2) % 3] + (d + 1)) & MASK32
     return x0, x1
+
+
+def uniform(key: Key, shape, device: torch.device | str) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), bit for bit,
+    under the partitionable Threefry (``jax_threefry_partitionable``,
+    JAX's default). Element i of the row-major flattened shape takes the
+    block on the counter (i >> 32, i mod 2**32) and XORs its two words;
+    the top 23 bits of that become the mantissa of a float in [1, 2), less
+    one."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], i >> 32, i & MASK32)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
 
 
 def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:

@@ -10,11 +10,14 @@ schedule per iteration follows OptixRenderer::renderNextIteration for PPM
    most ``cfg.max_photon_deposits_per_emitted`` times at non-specular hits
    from depth 1, Russian roulette from depth 3 (``ppm/PhotonGenerator.cu``,
    ``material/Diffuse.cu:92-131``);
-3. grid build: the sorted uniform grid (``photon_map.build_photon_grid``);
-4. indirect estimate: the tile gather (``accel/gather_kernels``, kernel B3
-   on CUDA) when the image splits into 16x16 blocks, the budgeted
-   ``photon_map.gather_photons`` otherwise
-   (``ppm/IndirectRadianceEstimation.cu``);
+3. photon map build, by ``cfg.photon_map_structure``: the sorted uniform
+   grid (``photon_map.build_photon_grid``), the stochastic hash or the
+   CPU kd-tree;
+4. indirect estimate (``ppm/IndirectRadianceEstimation.cu``): on the grid
+   the tile gather (``accel/gather_kernels``, kernel B3 on CUDA) when the
+   image splits into 16x16 blocks, the budgeted
+   ``photon_map.gather_photons`` otherwise; the hash's 3^3 scan or the
+   kd-tree's range query (plain torch: no TPU kernel computes them);
 5. direct estimate: shadow samples at the hitpoints; emitter, specular and
    miss pixels pass their stored radiance through
    (``ppm/DirectRadianceEstimation.cu``);
@@ -28,8 +31,7 @@ CUDA tensor runs the kernel, a CPU tensor its plain version. Every random
 decision draws the JAX package's per-lane streams. The deliberate fixes of
 the JAX package against the reference (cosine emission from area lights,
 the gather's BRDF kd/pi, no emitter display clamp unless
-``reference_faithful``) are kept. The stochastic hash and the CPU kd-tree
-arrive with a later slice.
+``reference_faithful``) are kept.
 """
 from __future__ import annotations
 
@@ -48,8 +50,10 @@ from ..core.rng import Key, LaneSampler, fold_in, iteration_key
 from ..core.sampling import (sample_cone, sample_disc, sample_unit_sphere,
                              sample_unit_hemisphere_cos)
 from ..lights import AREA, SPOT
-from ..photon_map import (PhotonBatch, build_photon_grid, gather_photons,
-                          min_cell_size_for_window)
+from ..photon_map import (PhotonBatch, build_photon_grid,
+                          build_photon_kdtree, build_stochastic_hash,
+                          gather_kdtree, gather_photons,
+                          gather_stochastic_hash, min_cell_size_for_window)
 from ..scene.types import Medium, Scene
 from .common import bsdf_at_hit, nee_direct, pixel_coords, scene_epsilon
 from .media import (sample_scatter_distance, segment_overlap, transmittance,
@@ -419,18 +423,44 @@ def _volumetric(medium: Medium, cfg: RenderConfig, hp: HitpointBuffer,
     return torch.where(sel_ok[:, None], volumetric, 0.0)
 
 
+def _grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
+                 radius: Tensor, est_key: Key, pixel_lanes: Tensor):
+    """The sorted grid's build and gather: the tile gather when the image
+    splits into 16x16 blocks, the budgeted gather otherwise. Returns
+    (power [N,3], per-query stats)."""
+    W, H = cfg.width, cfg.height
+    n = W * H
+    dev = radius.device
+    with torch.profiler.record_function("ppm_grid_build"):
+        grid = build_photon_grid(
+            photons, cfg.photon_grid_resolution,
+            min_cell_size=min_cell_size_for_window(radius, 4))
+    s_gather = LaneSampler(fold_in(est_key, 55), pixel_lanes,
+                           cheap=cfg.use_cheap_random)
+    with torch.profiler.record_function("ppm_indirect_gather"):
+        if W % 16 == 0 and H % 16 == 0:
+            perm, inv = (torch.as_tensor(a, dtype=torch.int64, device=dev)
+                         for a in tile_block_order(W, H))
+            u_rows = s_gather.next1().reshape(n // TILE, TILE)[:, :ROWS + 2]
+            acc_b, stats = gather_photons_tiled(
+                grid, hp.position[perm], hp.ns[perm], radius,
+                u_rows=u_rows, valid=hp.found[perm])
+            return acc_b[inv], stats
+        return gather_photons(
+            grid, hp.position, hp.ns, radius, max_cells_per_axis=4,
+            budget_total=cfg.gather_photon_budget,
+            u_stride=s_gather.next1())
+
+
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
                      iteration: int, base_key: Key, radius_sq
                      ) -> tuple[Tensor, dict]:
     """One PPM iteration at the squared gather radius ``radius_sq``:
     radiance [H, W, 3] and the stats dict (photons stored, average photon
-    path length, photons visited and subsampled by the surface gather,
-    and in a medium the volumetric photons stored)."""
-    if cfg.photon_map_structure != PhotonMapStructure.SORTED_UNIFORM_GRID:
-        raise NotImplementedError(
-            f"{cfg.photon_map_structure.name}: the port's PPM builds the "
-            "sorted uniform grid; the stochastic hash and the CPU kd-tree "
-            "arrive with a later slice")
+    path length, the surface gather's counts: photons visited and
+    subsampled on the grid, photons visited and lanes cut short
+    (``kd_overrun``) on the kd-tree, none on the hash; in a medium the
+    volumetric photons stored)."""
     W, H = cfg.width, cfg.height
     n = W * H
     dev = scene.device
@@ -454,26 +484,24 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
         photons, vol_photons, photon_stats = trace_photon_pass(
             scene, cfg, photon_key, eps, photon_lanes)
 
-    with torch.profiler.record_function("ppm_grid_build"):
-        grid = build_photon_grid(
-            photons, cfg.photon_grid_resolution,
-            min_cell_size=min_cell_size_for_window(radius, 4))
-    s_gather = LaneSampler(fold_in(est_key, 55), pixel_lanes,
-                           cheap=cfg.use_cheap_random)
-    with torch.profiler.record_function("ppm_indirect_gather"):
-        if W % 16 == 0 and H % 16 == 0:
-            perm, inv = (torch.as_tensor(a, dtype=torch.int64, device=dev)
-                         for a in tile_block_order(W, H))
-            u_rows = s_gather.next1().reshape(n // TILE, TILE)[:, :ROWS + 2]
-            acc_b, gather_stats = gather_photons_tiled(
-                grid, hp.position[perm], hp.ns[perm], radius,
-                u_rows=u_rows, valid=hp.found[perm])
-            accum_power = acc_b[inv]
-        else:
-            accum_power, gather_stats = gather_photons(
-                grid, hp.position, hp.ns, radius, max_cells_per_axis=4,
-                budget_total=cfg.gather_photon_budget,
-                u_stride=s_gather.next1())
+    structure = cfg.photon_map_structure
+    if structure == PhotonMapStructure.SORTED_UNIFORM_GRID:
+        accum_power, gather_stats = _grid_gather(cfg, hp, photons, radius,
+                                                 est_key, pixel_lanes)
+    elif structure == PhotonMapStructure.KD_TREE_CPU:
+        with torch.profiler.record_function("ppm_kdtree_build"):
+            tree = build_photon_kdtree(photons)
+        with torch.profiler.record_function("ppm_indirect_gather"):
+            accum_power, gather_stats = gather_kdtree(tree, hp.position,
+                                                      hp.ns, radius)
+    else:
+        with torch.profiler.record_function("ppm_hash_build"):
+            table = build_stochastic_hash(photons, radius,
+                                          cfg.stochastic_hash_size_log2,
+                                          fold_in(photon_key, 77))
+        with torch.profiler.record_function("ppm_indirect_gather"):
+            accum_power, gather_stats = gather_stochastic_hash(
+                table, hp.position, hp.ns, radius)
 
     brdf = hp.kd / torch.pi  # the reference uses kd (module docstring)
     indirect = (accum_power * brdf * hp.attenuation

@@ -1,6 +1,7 @@
-"""Photon map: sorted uniform grid build and fixed-budget gather.
+"""Photon maps: the sorted uniform grid and its fixed-budget gather, the
+stochastic hash and the CPU kd-tree.
 
-The counterpart of the sorted-grid half of ``oppositerenderer_tpu/photon_map.py``
+The counterpart of ``oppositerenderer_tpu/photon_map.py``
 (the reference's ``renderer/OptixRenderer_SpatialHash.cu:209-283`` build
 and ``ppm/IndirectRadianceEstimation.cu:69-237`` gather):
 
@@ -13,7 +14,10 @@ and ``ppm/IndirectRadianceEstimation.cu:69-237`` gather):
 
 The budgeted gather is PPM's path when the image does not split into
 16x16 blocks; otherwise ``accel/gather_kernels.gather_photons_tiled``
-runs. The stochastic hash and the CPU kd-tree arrive with a later slice.
+runs. PPM's two other photon maps (``PhotonMapStructure``) follow: the
+stochastic hash (one survivor per slot, scaled by the slot's count) and
+the CPU kd-tree (built on the host by ``native/kdtree_builder.cpp``,
+range-queried on the device with a fixed stack).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import dataclasses
 import torch
 
 from .core.math import Tensor, dot
+from .native import KD_NULL
 
 BIG = 1e30
 
@@ -269,4 +274,252 @@ def gather_photons(grid: PhotonGrid, position: Tensor, normal: Tensor,
     visited = torch.sum(gok, dim=-1, dtype=torch.int32)
     stats = dict(photons_visited=visited,
                  photon_subsampled=torch.clamp_min(total - visited, 0))
+    return accum, stats
+
+
+# ---------------------------------------------------------------------------
+# stochastic hash (O(1) memory per cell)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StochasticHashMap:
+    """Fixed-size hash: one surviving photon per slot and the count of
+    photons hashed there (store_photon.h:17-24; the count scales the
+    survivor's power). The cell size is the gather radius, so the 3^3
+    neighbourhood covers the gather sphere."""
+
+    position: Tensor   # [H,3]
+    power: Tensor      # [H,3]
+    direction: Tensor  # [H,3]
+    count: Tensor      # [H] int32 photons hashed to the slot
+    origin: Tensor     # [3]
+    cell_size: Tensor  # []
+
+
+HASH_PRIMES = (73856093, 19349663, 83492791)
+
+
+def _hash_cell(c: Tensor, n_slots: int) -> Tensor:
+    """Integer cell [..., 3] (int32) -> slot, by large-prime mixing. The
+    JAX package multiplies in int32 and wraps; the low bits of the int64
+    products are the same, and the mask keeps only low bits."""
+    c = c.long()
+    h = ((c[..., 0] * HASH_PRIMES[0]) ^ (c[..., 1] * HASH_PRIMES[1])
+         ^ (c[..., 2] * HASH_PRIMES[2]))
+    return (h & (n_slots - 1)).to(torch.int32)
+
+
+def build_stochastic_hash(photons: PhotonBatch, cell_size: Tensor,
+                          table_size_log2: int, key) -> StochasticHashMap:
+    """initializeStochasticHashPhotonMap
+    (OptixRenderer_SpatialHash.cu:286-334). Each slot keeps one photon: in
+    the reference the last writer of a race, here (as in the JAX package)
+    the last one in the order of a random priority per photon drawn from
+    ``key`` (``jax.random.uniform``, over every row). A stable sort
+    orders equal priorities by row, and the winner of each slot is the
+    valid photon of highest rank in that order, found by a max-reduction,
+    so the table is the JAX package's bit for bit on every device. Only
+    valid photons enter the reduction: the JAX package sends the others
+    to one extra slot, whose atomics would all collide on the card."""
+    from .core.rng import uniform
+    p = photons.position
+    v = photons.valid
+    dev = p.device
+    pmin = torch.amin(torch.where(v[:, None], p, BIG), dim=0)
+    pmin = torch.where(torch.any(v), pmin, 0.0)
+    n_slots = 1 << table_size_log2
+    c = torch.floor((p - pmin) / cell_size).to(torch.int32)
+    slot = _hash_cell(c, n_slots).long()
+
+    prio = uniform(key, (p.shape[0],), dev)
+    order = torch.sort(prio, stable=True).indices
+    rank = torch.nonzero(v[order]).squeeze(1)   # ranks of the valid rows
+    slot_r = slot[order[rank]]
+    count = torch.bincount(slot_r, minlength=n_slots).to(torch.int32)
+    best = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, slot_r, rank, reduce="amax")
+    has = (best >= 0)[:, None]
+    src = order[best.clamp_min(0)]
+
+    def table(a):
+        return torch.where(has, a[src], 0.0)
+
+    return StochasticHashMap(
+        position=table(p), power=table(photons.power),
+        direction=table(photons.direction), count=count,
+        origin=pmin, cell_size=torch.as_tensor(cell_size, device=dev))
+
+
+def gather_stochastic_hash(h: StochasticHashMap, position: Tensor,
+                           normal: Tensor, radius):
+    """3^3 neighbourhood scan, each survivor's weight times its slot's
+    count (IndirectRadianceEstimation.cu:131-166). Returns (power [N,3],
+    an empty stats dict)."""
+    n_slots = h.count.shape[0]
+    dev = position.device
+    r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    radius2 = torch.broadcast_to(r * r, position.shape[:-1])
+    base = torch.floor((position - h.origin) / h.cell_size).to(torch.int32)
+    accum = torch.zeros(position.shape[:-1] + (3,), dtype=torch.float32,
+                        device=dev)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                off = torch.tensor([dx, dy, dz], dtype=torch.int32,
+                                   device=dev)
+                slot = _hash_cell(base + off, n_slots).long()
+                diff = position - h.position[slot]
+                d2 = dot(diff, diff)
+                cnt = h.count[slot]
+                ok = ((cnt > 0) & (d2 <= radius2)
+                      & (dot(-h.direction[slot], normal) >= 0.0))
+                w = gaussian_kernel_weight(d2, radius2)
+                contrib = h.power[slot] * (w * cnt)[..., None]
+                accum = accum + torch.where(ok[..., None], contrib, 0.0)
+    return accum, {}
+
+
+# ---------------------------------------------------------------------------
+# CPU kd-tree (reference OptixRenderer_CPUKdTree.cpp:27-129)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PhotonKdTree:
+    """Left-balanced kd-tree photon map (children of slot i at 2i+1/2i+2).
+
+    The analog of the reference's ACCELERATION_STRUCTURE_KD_TREE_CPU
+    (config.h:18-21): the tree is median-built on the host
+    (``native/kdtree_builder.cpp``), as the reference builds it on the
+    CPU, and range-queried on the device with a fixed stack. The sorted
+    uniform grid stays the production structure.
+    """
+
+    position: Tensor   # [m,3] the photon at each slot (zeros on null slots)
+    power: Tensor      # [m,3]
+    direction: Tensor  # [m,3]
+    axis: Tensor       # [m] int32: 0/1/2 split axis, 3 leaf, 4 null
+    n_valid: Tensor    # [] int32
+
+
+def _kd_capacity(n_rows: int) -> int:
+    m = 1
+    while m < n_rows:
+        m = 2 * m + 1
+    return m
+
+
+def build_photon_kdtree(photons: PhotonBatch) -> PhotonKdTree:
+    """createPhotonKdTreeOnCPU (OptixRenderer_CPUKdTree.cpp:89-129): the
+    positions and the valid mask go to the host, the native builder
+    orders the valid rows, and the tree's slots gather their photons on
+    the device. The capacity follows from all rows, valid or not, as in
+    the JAX package."""
+    import numpy as np
+
+    from .native import build_photon_kdtree_native
+    p = photons.position
+    dev = p.device
+    m = _kd_capacity(p.shape[0])
+    sel = np.nonzero(photons.valid.cpu().numpy())[0]
+    perm = np.full((m,), -1, np.int32)
+    axis = np.full((m,), KD_NULL, np.int32)
+    if sel.size:
+        perm_c, axis_c = build_photon_kdtree_native(
+            p.detach()[torch.as_tensor(sel, device=dev)].cpu().numpy())
+        # compacted rows back to the batch's rows
+        perm[:perm_c.shape[0]] = np.where(
+            perm_c >= 0, sel[np.clip(perm_c, 0, None)], -1)
+        axis[:axis_c.shape[0]] = axis_c
+    perm_t = torch.as_tensor(perm, device=dev)
+    safe = torch.clamp(perm_t, 0, p.shape[0] - 1).long()
+    null = (perm_t < 0)[:, None]
+
+    def slots(a):
+        return torch.where(null, 0.0, a[safe])
+
+    return PhotonKdTree(
+        position=slots(p), power=slots(photons.power),
+        direction=slots(photons.direction),
+        axis=torch.where(null[:, 0], KD_NULL,
+                         torch.as_tensor(axis, device=dev)).to(torch.int32),
+        n_valid=torch.sum(photons.valid).to(torch.int32))
+
+
+# the kd gather asks the device whether any lane is live every this many
+# steps: one host sync per check
+KD_STEPS_PER_CHECK = 16
+
+
+def gather_kdtree(tree: PhotonKdTree, position: Tensor, normal: Tensor,
+                  radius, *, max_visits: int = 512,
+                  check_normal: bool = True):
+    """Range query over the kd-tree (IndirectRadianceEstimation.cu:168-210's
+    stack traversal over all query lanes at once, with a fixed [N, S]
+    stack): each step pops one slot per lane, adds its photon if it is
+    within the radius, and pushes the far child (when the splitting plane
+    is within the radius), then the near one.
+
+    At most ``max_visits`` steps run (the reference's traversal is
+    unbounded; lanes with work left are counted in ``kd_overrun``). The
+    loop asks the device whether any lane is live every
+    ``KD_STEPS_PER_CHECK`` steps: a step changes nothing once no lane is,
+    so the result equals a check at every step.
+
+    Returns (power [N,3], stats with photons_visited [N] and kd_overrun).
+    """
+    m = tree.axis.shape[0]
+    depth = max(1, m.bit_length())
+    stack_size = depth + 2
+    n = position.shape[0]
+    dev = position.device
+    r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    radius2 = torch.broadcast_to(r * r, (n,))
+    lanes = torch.arange(n, device=dev)
+
+    stack = torch.zeros((n, stack_size), dtype=torch.int64, device=dev)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)  # root pushed
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    visited = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    def push(stack, sp, child, when):
+        at = torch.clamp_max(sp, stack_size - 1)[:, None]
+        keep = stack.gather(1, at)
+        stack = stack.scatter(1, at, torch.where(when[:, None],
+                                                 child[:, None], keep))
+        return stack, sp + when.long()
+
+    step = 0
+    while step < max_visits:
+        if step % KD_STEPS_PER_CHECK == 0 and not bool(torch.any(sp > 0)):
+            break
+        step += 1
+        active = sp > 0
+        slot = stack[lanes, torch.clamp_min(sp - 1, 0)]
+        sp = torch.where(active, sp - 1, sp)
+
+        ax = tree.axis[slot]
+        ppos = tree.position[slot]
+        ok = active & (ax != KD_NULL)
+
+        diff = position - ppos
+        d2 = dot(diff, diff)
+        in_r = ok & (d2 <= radius2)
+        if check_normal:
+            in_r = in_r & (dot(-tree.direction[slot], normal) >= 0.0)
+        w = gaussian_kernel_weight(d2, radius2)
+        accum = accum + torch.where(in_r[:, None],
+                                    tree.power[slot] * w[:, None], 0.0)
+        visited = visited + ok.to(torch.int32)
+
+        is_internal = ok & (ax < 3)
+        axc = torch.clamp(ax, 0, 2).long()
+        delta = position[lanes, axc] - ppos[lanes, axc]
+        left = delta < 0.0
+        near = torch.where(left, 2 * slot + 1, 2 * slot + 2)
+        far = torch.where(left, 2 * slot + 2, 2 * slot + 1)
+        stack, sp = push(stack, sp, far, is_internal
+                         & (delta * delta <= radius2) & (far < m))
+        stack, sp = push(stack, sp, near, is_internal & (near < m))
+    stats = dict(photons_visited=visited,
+                 kd_overrun=torch.sum(sp > 0, dtype=torch.int32))
     return accum, stats

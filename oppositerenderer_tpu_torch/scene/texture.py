@@ -8,7 +8,9 @@ scene is built. Sampling is bilinear with repeat wrapping
 per-triangle tangent frame.
 
 The JAX package resizes with PIL's ``Image.resize(..., BILINEAR)`` on the
-8-bit image. The port does not depend on PIL: :func:`_resize_bilinear_u8`
+8-bit image. The port's atlas does not depend on PIL (only
+:func:`load_image`, which reads scene files' textures, does):
+:func:`_resize_bilinear_u8`
 is that resize written out in numpy, PIL's two separable passes with its
 22-bit fixed-point weights and its 8-bit intermediate, so the atlases are
 equal to the JAX package's.
@@ -75,6 +77,15 @@ def _resize_bilinear_u8(img: np.ndarray, size: int) -> np.ndarray:
     if img.shape[0] != size:
         img = _resample_axis(img, size, axis=0)
     return img
+
+
+def load_image(path) -> np.ndarray:
+    """RGB float32 image [H, W, 3] in [0, 1], read with PIL (PNG, JPG, TGA;
+    the reference vendors libtga for TGA). Scene import is the one caller,
+    so PIL is imported only here."""
+    from PIL import Image
+    img = Image.open(str(path)).convert("RGB")
+    return np.asarray(img, np.float32) / 255.0
 
 
 def build_atlas(images: list[np.ndarray], resolution: int = 256,

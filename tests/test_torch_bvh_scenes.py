@@ -12,6 +12,7 @@ paths: the images agree at rtol 2e-4 + atol 2e-4, the bar of
 ``tests/test_coherent_routing.py``.
 """
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -140,10 +141,22 @@ def test_renders_count_no_launch_on_the_cpu():
     assert (bk.traverse.launches, bk.traverse_any.launches) == before
 
 
-def test_scene_files_still_raise():
-    for name in ("scene.dae", "model.obj"):
-        with pytest.raises(NotImplementedError, match="scene-import"):
-            get_scene_by_name(name, "cpu")
+def test_scene_files_still_raise(tmp_path):
+    """Scene files no longer raise: a .dae and an .obj path load through
+    get_scene_by_name, the repo's Atrium export (8,098 triangles) with its
+    BVH; and a medium arrives with a scene (tests/test_torch_import.py
+    holds the imports against JAX's)."""
+    scene, cam = get_scene_by_name(
+        str(Path(__file__).resolve().parent.parent / "scenes"
+            / "atrium_lite.dae"), "cpu")
+    assert scene.geometry.n_triangles == 8098
+    assert scene.bvh is not None and scene.bvh.builder == "native"
+    assert cam.eye.device.type == "cpu"
+    obj = tmp_path / "quad.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3 4\n")
+    scene, _ = get_scene_by_name(str(obj), "cpu")
+    assert scene.geometry.n_triangles == 2 and scene.bvh is None
+    assert scene.lights.n_lights == 1        # the headlight
     jl = leaves(jax_scene("CornellSmall")[0])
     # a medium no longer raises: it arrives with the scene
     jl["medium"] = {"sigma_s": np.float32(0.1), "sigma_a": np.float32(0.0),

@@ -533,3 +533,77 @@ def test_ppm_with_a_medium_on_the_card_matches_the_cpu(cuda):
     assert share >= chip_smoke.PPM_MIN_AGREEING
     assert mean_err <= chip_smoke.PPM_MEAN_RTOL
     assert vols[1] == pytest.approx(vols[0], rel=1e-3) and vols[0] > 0
+
+
+@pytest.mark.parametrize("structure,min_share", [
+    ("STOCHASTIC_HASH", 0.98), ("KD_TREE_CPU", chip_smoke.PPM_MIN_AGREEING)])
+def test_photon_maps_on_the_card_match_the_cpu(cuda, structure, min_share):
+    """One 32^2 PPM iteration with the stochastic hash or the kd-tree on
+    the card against the CPU port: PPM's bar, the hash's share of pixels
+    at tests/test_torch_photon_maps.py's (its cells turn last-ulp
+    differences of the photons into other slots); neither launches B3."""
+    from oppositerenderer_tpu_torch.config import PhotonMapStructure
+    cfg = RenderConfig(width=32, height=32, photons_per_iteration=1 << 12,
+                       photon_grid_resolution=16,
+                       render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
+                       photon_map_structure=PhotonMapStructure[structure])
+    imgs = []
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        before = gk.gather_photons_tiled.launches
+        imgs.append(Renderer(scene, cam, cfg, seed=7).render(
+            1).mean_radiance().cpu().numpy())
+        assert gk.gather_photons_tiled.launches == before
+    share, mean_err = chip_smoke.image_agreement(imgs[1], imgs[0])
+    assert np.isfinite(imgs[1]).all() and imgs[1].mean() > 0
+    assert share >= min_share and mean_err <= chip_smoke.PPM_MEAN_RTOL
+
+
+def test_photon_map_tables_on_the_card_equal_the_cpu_tables(cuda):
+    """On the same photons the card's hash table and kd-tree are the CPU's
+    bit for bit: each slot's winner is found by a max-reduction, not by
+    the order of a racing scatter."""
+    from oppositerenderer_tpu_torch import interop
+    from oppositerenderer_tpu_torch import photon_map as pm
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    rng = np.random.default_rng(3)
+    n = 200_000
+    pos = rng.uniform(0.0, 2.0, (n, 3)).astype(np.float32)
+    pos[: n // 2] = (1.0 + 0.01 * rng.standard_normal((n // 2, 3))
+                     ).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    leaves = dict(position=pos, direction=d / np.linalg.norm(
+        d, axis=1, keepdims=True), power=rng.uniform(
+        size=(n, 3)).astype(np.float32), valid=rng.uniform(size=n) < 0.8)
+    tables = []
+    for dev in ("cpu", cuda):
+        batch = interop.photon_batch_from_numpy(leaves, dev)
+        h = pm.build_stochastic_hash(batch, torch.tensor(0.02, device=dev),
+                                     16, make_root_key(9))
+        t = pm.build_photon_kdtree(batch)
+        tables.append([x.cpu() for x in (h.position, h.power, h.direction,
+                                         h.count, t.position, t.axis)])
+    for a, b in zip(*tables):
+        assert torch.equal(a, b)
+
+
+def test_loaders_put_every_tensor_on_the_card(cuda, tmp_path):
+    """Without a device a .dae or .obj scene and its camera land on cuda
+    (the BVH's binary node arrays stay on the host by design)."""
+    scenes = Path(__file__).resolve().parent.parent / "scenes"
+    obj = tmp_path / "quad.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3 4\n")
+
+    def tensors(x, path=""):
+        if dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                yield from tensors(getattr(x, f.name), f"{path}{f.name}.")
+        elif torch.is_tensor(x):
+            yield path.rstrip("."), x
+
+    for path in (scenes / "atrium_lite.dae", obj):
+        scene, cam = get_scene_by_name(str(path))
+        found = dict(tensors(scene)) | dict(tensors(cam, "camera."))
+        off = [k for k, v in found.items() if v.device.type != "cuda"
+               and not k.startswith("bvh.nodes_")]
+        assert not off and len(found) > 20, off

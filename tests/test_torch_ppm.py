@@ -229,10 +229,16 @@ def test_budget_gather_when_the_image_has_no_16x16_blocks():
 
 
 def test_later_slices_raise():
-    r = small_renderer(
-        photon_map_structure=PhotonMapStructure.STOCHASTIC_HASH)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        r.render(1)
+    """Nothing of PPM is refused any more: the stochastic hash and the
+    kd-tree render (tests/test_torch_photon_maps.py), and so does a
+    medium (tests/test_torch_media.py)."""
+    for structure in (PhotonMapStructure.STOCHASTIC_HASH,
+                      PhotonMapStructure.KD_TREE_CPU):
+        r = small_renderer(photon_map_structure=structure)
+        assert bool(torch.isfinite(r.render(1).mean_radiance()).all())
+        assert r.metrics["photons_stored"] > 0
+        assert ("kd_overrun" in r.metrics) == (
+            structure == PhotonMapStructure.KD_TREE_CPU)
     # a medium no longer raises (tests/test_torch_media.py)
     r = small_renderer()
     r.scene.medium = Medium(sigma_s=torch.tensor(0.15),

@@ -80,12 +80,13 @@ def test_scene_and_camera_fields_match_jax(name):
 
 
 def test_unknown_and_later_slice_inputs_raise():
-    """Scene files belong to a later slice of the port; Atrium,
-    Conference, textured scenes and media are in
-    (tests/test_torch_bvh_scenes.py, tests/test_torch_texture.py,
-    tests/test_torch_media.py)."""
-    with pytest.raises(NotImplementedError, match="scene-import slice"):
-        get_scene_by_name("sponza.dae", "cpu")
+    """An unknown name is a scene file (tests/test_torch_import.py), and
+    a missing file raises as in the JAX package; Atrium, Conference,
+    textured scenes and media are in (tests/test_torch_bvh_scenes.py,
+    tests/test_torch_texture.py, tests/test_torch_media.py)."""
+    for name in ("sponza.dae", "NoSuchScene"):
+        with pytest.raises(FileNotFoundError):
+            get_scene_by_name(name, "cpu")
     jl = leaves(jax_scene("CornellSmall")[0])
     jl["textures"] = np.zeros((1, 4, 4, 3), np.float32)
     assert interop.scene_from_numpy(jl, "cpu").has_textures
