@@ -156,8 +156,36 @@ and the script exits non-zero without printing the result line:
                  JAX package's bars (the hash's within 25%, the kd-tree's
                  within 5%); the mean |difference| per pixel printed.
 
+20. shard-main - the distribution's sharded step (parallel/render.py) over
+                 a one-rank NCCL process group in this process, at full
+                 width, iteration 1, seed 0: PT on CornellSmall 512^2, PPM
+                 main with the all-to-all and the all-gather exchange,
+                 VCM+VM at vcm-vm-main's configuration, PT on Atrium 512^2.
+                 Each band must equal the unsharded Renderer iteration bit
+                 for bit (VCM+VM: 99.9% of the pixels within rtol 1e-4, the
+                 mean within 1e-5: its t=1 splats add atomically) with the
+                 same kernel launches; sharded and unsharded are timed in
+                 turns. B3 also runs on the partial grids of a 2-way
+                 exchange of PPM main's photons, against its plain version.
+21. grad-shard - d mean(image) / d kd through the sharded PT step at 512^2
+                 on the one NCCL rank against the unsharded gradient (rel
+                 5e-3), forward + backward seconds of each.
+22. ranks      - two worker processes (python -m
+                 oppositerenderer_tpu_torch.parallel.worker, spawned after
+                 the kernels are built) share the card over gloo and run:
+                 shard-ranks (tests/test_torch_sharding.py's seven cases at
+                 64^2 against the unsharded card render at its bars; PPM
+                 main's exchange, whose partial grids must hold every photon
+                 and its power within 1e-5, and its step, whose image mean
+                 must be within 1% of the unsharded); multihost (PT 512^2,
+                 8 iterations, strided and leased through the scheduler,
+                 the merged film against one process's at rtol 2e-5, atol
+                 1e-6; merge ms); and grad-shard's 2-rank PT gradient at
+                 64^2 against the unsharded one (rel 5e-3).
+
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 8b, 11, 12, 15, 16, 18 and 19), errors, times and
+the main phases (5, 8, 8b, 11, 12, 15, 16, 18, 19, 20's sharded timed
+steps and 22's workers, summed over their ranks), errors, times and
 bounds; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -275,6 +303,31 @@ FLAGSHIP_TIMING_REPS = 5
 PHOTON_MAP_ITERS = 2
 HASH_MEAN_RTOL = 0.25
 KD_MEAN_RTOL = 0.05
+# distribution: shard-main and grad-shard's first part run one NCCL rank in
+# this process at full width; phase ranks spawns RANKS worker processes
+# that share the card over gloo (shard-ranks, multihost, grad-shard's
+# second part). Sharded steps render iteration SHARD_ITERATION; each is
+# timed in turns with the unsharded iteration (unsharded, sharded,
+# sharded, unsharded) over SHARD_TIMING_ITERS iterations a turn.
+SHARD_ITERATION = 1
+SHARD_TIMING_ITERS = {"PT": 5, "PPM": 3, "VCM+VM": 1, "Atrium PT": 3}
+# VCM's t=1 splats add atomically on the card, so two renders of its
+# image agree to float tolerance, not bits: share of pixels within rtol,
+# and the image mean
+SHARD_PIXEL_RTOL, SHARD_MIN_AGREEING, SHARD_MEAN_RTOL = 1e-4, 0.999, 1e-5
+RANKS = 2
+RANKS_SIZE = 64
+# 2-rank sharded image against the unsharded one where a sum over ranks
+# adds in another order (the CPU tests' bar): rtol + atol * max|ref|
+RANKS_RTOL, RANKS_ATOL_OF_MAX = 1e-5, 1e-6
+# PPM main over 2 ranks' partial grids: the tile gather takes another
+# 256-photon block of a row longer than that (a partial grid holds a
+# row's photons in another order), so the image agrees in its mean
+RANKS_PPM_MEAN_RTOL = 0.01
+EXCHANGE_POWER_RTOL = 1e-5
+MULTIHOST_ITERS = 8
+MULTIHOST_RTOL, MULTIHOST_ATOL = 2e-5, 1e-6
+GRAD_SHARD_RTOL = 5e-3
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and FP32 operations/s outside the tensor cores
@@ -1215,7 +1268,8 @@ def vcm_merge_inputs(dev):
     merge = vcm.merge_vertices_tiled
 
     def record(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM, cam_dVM,
-               active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1):
+               active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1,
+               mesh=None):
         calls.append(dict(
             vgrid=vgrid, cam_bsdf=cam_bsdf, cam_pos=cam_pos,
             cam_thr=cam_thr, cam_dVCM=cam_dVCM, cam_dVM=cam_dVM,
@@ -1223,7 +1277,7 @@ def vcm_merge_inputs(dev):
             n_light_paths=n_light_paths, u_rows=u_rows, depth1=depth1))
         return merge(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
                      cam_dVM, active, radius_sq, mis_vc_w, n_light_paths,
-                     u_rows, depth1)
+                     u_rows, depth1, mesh=mesh)
 
     vcm.merge_vertices_tiled = record
     try:
@@ -2513,6 +2567,403 @@ def phase_photon_maps(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# distribution
+def _scrubbed(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(x), x, 0.0)
+
+
+def _launch_counts() -> dict:
+    from oppositerenderer_tpu_torch.parallel.worker import kernel_wrappers
+    return {w.__name__: w.launches for w in kernel_wrappers()}
+
+
+def _reset_launches() -> None:
+    from oppositerenderer_tpu_torch.parallel.worker import kernel_wrappers
+    for w in kernel_wrappers():
+        w.launches = 0
+
+
+def one_rank_nccl_mesh(dev):
+    """A one-rank NCCL process group in this process and its mesh: the
+    collectives run through NCCL, each over one rank."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from oppositerenderer_tpu_torch.parallel import make_mesh
+    from oppositerenderer_tpu_torch.parallel.worker import free_port
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh(device=dev)
+    print(f"[shard-main] mesh: {mesh.size} rank, backend {mesh.backend}, "
+          f"device {mesh.device}")
+    return mesh
+
+
+def partial_grid_b3(dev, call) -> float:
+    """B3 on the partial grids of a 2-way exchange of PPM main's photons:
+    the exchange's local half sends the photons of the one-rank step's grid
+    to 2 owners, each slab builds its owner's grid, and the kernel runs
+    over every query against each, held against its plain version (phase
+    kernels' tolerance); the two partial sums add up to the whole grid's
+    image (the means within 1%: rows over 256 photons take another block).
+    Returns the largest |err|."""
+    from oppositerenderer_tpu_torch.accel import gather_kernels as gk
+    from oppositerenderer_tpu_torch.parallel.exchange import \
+        bucket_photons_by_owner
+    from oppositerenderer_tpu_torch.photon_map import (PhotonBatch,
+                                                       build_photon_grid)
+    grid, q, qn, r, u_rows, valid = call
+    n = int(grid.n_valid)
+    photons = PhotonBatch(position=grid.position[:n], power=grid.power[:n],
+                          direction=grid.direction[:n],
+                          valid=torch.ones(n, dtype=torch.bool, device=dev))
+    slab, ok, overflow = bucket_photons_by_owner(
+        photons, grid.origin, grid.cell_size, grid.resolution, 2, 2.0, 0.5)
+    if int(overflow):
+        raise AssertionError(f"B3 partial grids: {int(overflow)} photons "
+                             "overflowed a slab")
+    r2 = torch.square(torch.as_tensor(r, dtype=torch.float32, device=dev))
+    total, worst = None, 0.0
+    for owner in range(2):
+        part = build_photon_grid(
+            PhotonBatch(position=slab[owner, :, 0:3],
+                        power=slab[owner, :, 3:6],
+                        direction=slab[owner, :, 6:9], valid=ok[owner]),
+            grid.resolution, origin=grid.origin, cell_size=grid.cell_size)
+        starts, lens, weights, _, _, rows = gk._tile_tables(part, q, r,
+                                                            u_rows, valid)
+        args = (starts, lens, weights, rows, r2, q, qn, part, True)
+        got = gk.gather_photons_tiled_kernel(*args)
+        want = gk.gather_photons_tiled_plain(*args)
+        err = (got.double() - want.double()).abs()
+        scale = float(want.abs().max())
+        bad = int((err > GATHER_RTOL * want.double().abs()
+                   + GATHER_ATOL_REL * scale).sum())
+        ms = cuda_ms(lambda: gk.gather_photons_tiled_kernel(*args))
+        print(f"[shard-main] B3 on owner {owner}'s partial grid "
+              f"({int(part.n_valid)} of {n} photons): max |err| "
+              f"{float(err.max()):.3g} of max |ref| {scale:.4g}, {bad} "
+              f"sums outside the tolerance; {ms:.4f} ms")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError("B3 on a partial grid differs from its "
+                                 "plain version")
+        worst = max(worst, float(err.max()))
+        total = got if total is None else total + got
+    whole = gk.gather_photons_tiled(grid, q, qn, r, u_rows=u_rows,
+                                    valid=valid)[0]
+    rel = abs(float(total.double().sum() / whole.double().sum()) - 1.0)
+    print(f"[shard-main] B3 partial sums against the whole grid's: summed "
+          f"power off by {rel:.2e}")
+    if rel > RANKS_PPM_MEAN_RTOL:
+        raise AssertionError("B3's partial sums do not add up to the "
+                             "whole grid's")
+    return worst
+
+
+def phase_shard_main(dev, mesh) -> tuple[dict, float]:
+    """The sharded step over a one-rank NCCL mesh at full width: PT,
+    PPM main with each exchange, VCM+VM and Atrium PT, iteration
+    SHARD_ITERATION, seed 0. Each band must equal the unsharded Renderer
+    iteration (bit for bit; VCM at SHARD_PIXEL_RTOL, its atomic splats),
+    with the same kernel launches; then both are timed in turns. Returns
+    the sharded timed runs' launches and B3's largest |err| on partial
+    grids (:func:`partial_grid_b3`)."""
+    from oppositerenderer_tpu_torch.config import PhotonExchange, RenderConfig
+    from oppositerenderer_tpu_torch.parallel import exchange as xch
+    from oppositerenderer_tpu_torch.parallel import make_sharded_render_fn
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    pt_cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
+    cases = [("PT", MAIN_SCENE, pt_cfg, True),
+             ("PPM all-to-all", MAIN_SCENE, ppm_main_config(), True),
+             ("PPM all-gather", MAIN_SCENE, ppm_main_config().replace(
+                 photon_exchange=PhotonExchange.ALL_GATHER), True),
+             ("VCM+VM", MAIN_SCENE, vcm_main_config(True), False),
+             ("Atrium PT", "Atrium", RenderConfig(width=ATRIUM_SIZE,
+                                                  height=ATRIUM_SIZE), True)]
+    total = {k: 0 for k in KERNELS}
+    b3_err = 0.0
+    scenes = {}
+    for label, name, cfg, bits in cases:
+        if name not in scenes:
+            scenes[name] = get_scene_by_name(name, dev)
+        scene, cam = scenes[name]
+        r = Renderer(scene, cam, cfg, seed=0)
+        it = SHARD_ITERATION
+        step = make_sharded_render_fn(scene, cam, cfg, mesh)
+        calls = []
+        gather = xch.gather_photons_tiled
+
+        def record(*args, **kw):
+            calls.append(args + (kw["u_rows"], kw["valid"]))
+            return gather(*args, **kw)
+
+        runs = {"unsharded": lambda: r.compute_iteration(it)[0],
+                "sharded": lambda: _scrubbed(step(it, r.root_key,
+                                                  r._radius_sq(it))[0])}
+        images, counts = {}, {}
+        for kind, fn in runs.items():
+            fn()                                    # warm-up
+            torch.cuda.synchronize()
+            _reset_launches()
+            if kind == "sharded" and label == "PPM all-to-all":
+                xch.gather_photons_tiled = record
+            try:
+                images[kind] = fn().reshape(cfg.height, cfg.width, 3)
+            finally:
+                xch.gather_photons_tiled = gather
+            torch.cuda.synchronize()
+            counts[kind] = _launch_counts()
+        if counts["sharded"] != counts["unsharded"]:
+            raise AssertionError(f"shard-main {label}: sharded launches "
+                                 f"{counts['sharded']}, unsharded "
+                                 f"{counts['unsharded']}")
+        got, want = (images[k].double() for k in ("sharded", "unsharded"))
+        if not bool(torch.isfinite(got).all()) or float(got.mean()) <= 0:
+            raise AssertionError(f"shard-main {label}: band not finite and "
+                                 "positive")
+        agree = float(torch.isclose(got, want, rtol=SHARD_PIXEL_RTOL,
+                                    atol=0.0).all(dim=-1).double().mean())
+        mean_rel = abs(float(got.mean() / want.mean()) - 1.0)
+        equal = torch.equal(images["sharded"], images["unsharded"])
+        if bits and not equal:
+            raise AssertionError(f"shard-main {label}: sharded band differs "
+                                 f"from the unsharded iteration ({agree:.6f} "
+                                 f"of the pixels within {SHARD_PIXEL_RTOL})")
+        if not bits and (agree < SHARD_MIN_AGREEING
+                         or mean_rel > SHARD_MEAN_RTOL):
+            raise AssertionError(f"shard-main {label}: {agree:.6f} of the "
+                                 f"pixels agree, mean off by {mean_rel:.2e}")
+        n = SHARD_TIMING_ITERS[label.split(" ")[0] if label.startswith("PPM")
+                               else label]
+        times = {"unsharded": [], "sharded": []}
+        for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                runs[kind]()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / n * 1e3)
+            if kind == "sharded":
+                for k, c in _launch_counts().items():
+                    if c != n * counts["sharded"][k]:
+                        raise AssertionError(f"shard-main {label}: {k} "
+                                             f"launched {c} times in {n} "
+                                             "steps")
+                    total[k] += c
+        launched = {k: c for k, c in counts["sharded"].items() if c}
+        print(f"[shard-main] {label} {name} {cfg.width}^2: sharded band "
+              f"{'equal bit for bit' if equal else 'not bit-equal'} to the "
+              f"unsharded iteration ({agree:.6f} of the pixels within "
+              f"rtol {SHARD_PIXEL_RTOL}, mean off by {mean_rel:.2e}); "
+              f"launches an iteration {launched}, equal; ms/iter in turns "
+              f"(unsharded, sharded, sharded, unsharded, {n} iterations a "
+              f"turn): unsharded {statistics.mean(times['unsharded']):.3f} "
+              f"({', '.join(f'{t:.3f}' for t in times['unsharded'])}), "
+              f"sharded {statistics.mean(times['sharded']):.3f} "
+              f"({', '.join(f'{t:.3f}' for t in times['sharded'])})")
+        if calls:
+            b3_err = max(b3_err, partial_grid_b3(dev, calls[0]))
+    return total, b3_err
+
+
+def phase_grad_shard(dev, mesh) -> None:
+    """d mean(image) / d kd of material 0 through the sharded PT step at
+    512^2 over the one-rank NCCL mesh, against the unsharded gradient
+    (rel GRAD_SHARD_RTOL): one warm-up, then the seconds of each."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    from oppositerenderer_tpu_torch.integrators import pt
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
+    wrt = {("kd", 0): scene.materials.kd[0]}
+    key = make_root_key(0)
+    sharded = diff.make_sharded_loss_and_grad(scene, cam, cfg, mesh, wrt)
+    runs = {"sharded": lambda: sharded(iteration=0, key=key),
+            "unsharded": lambda: diff.render_loss_and_grad(
+                lambda s: pt.render_iteration(s, cam, cfg, 0, key), scene,
+                wrt)}
+    out = {}
+    for kind, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = fn()
+        torch.cuda.synchronize()
+        out[kind] = (float(loss), grads[("kd", 0)].double().cpu(),
+                     time.perf_counter() - t0)
+    (ls, gs, ts), (lu, gu, tu) = out["sharded"], out["unsharded"]
+    rel = float(((gs - gu).abs() / gu.abs()).max())
+    print(f"[grad-shard] PT {MAIN_SIZE}^2 d/dkd over {mesh.size} "
+          f"{mesh.backend} rank: loss "
+          f"{ls:.7g} (unsharded {lu:.7g}), gradient {gs.tolist()} "
+          f"(unsharded {gu.tolist()}): max rel err {rel:.3g} (bound "
+          f"{GRAD_SHARD_RTOL}); forward + backward {ts:.3f} s sharded, "
+          f"{tu:.3f} s unsharded")
+    if rel > GRAD_SHARD_RTOL or not bool((gs > 0).all()):
+        raise AssertionError("the sharded gradient differs from the "
+                             "unsharded one")
+
+
+def ranks_cases() -> list[dict]:
+    """The cases phase ranks runs on RANKS processes sharing the card."""
+    from oppositerenderer_tpu_torch.parallel.worker import sharding_cases
+    ppm = dict(width=MAIN_SIZE, height=MAIN_SIZE,
+               render_method="PROGRESSIVE_PHOTON_MAPPING",
+               photons_per_iteration=PPM_MAIN_PHOTONS)
+    pt = dict(width=MAIN_SIZE, height=MAIN_SIZE)
+    mh = dict(kind="multihost", cfg=pt, iterations=MULTIHOST_ITERS, seed=0)
+    return sharding_cases(RANKS_SIZE) + [
+        dict(name="ppm_main", kind="render", cfg=ppm, seed=0,
+             iteration=SHARD_ITERATION, reps=2),
+        dict(name="ppm_main_exchange", kind="exchange", cfg=ppm, seed=0,
+             iteration=SHARD_ITERATION),
+        dict(mh, name="multihost_strided"),
+        dict(mh, name="multihost_leased", schedule="leased", packet_size=2),
+        dict(name="grad_pt", kind="grad", wrt=[["kd", 0]], seed=0,
+             cfg=dict(width=RANKS_SIZE, height=RANKS_SIZE))]
+
+
+def phase_ranks(dev) -> dict:
+    """RANKS worker processes (python -m
+    oppositerenderer_tpu_torch.parallel.worker, spawned) share the card
+    over gloo and run :func:`ranks_cases`; this process then renders the
+    references on the card. Phases shard-ranks (the 64^2 cases of
+    tests/test_torch_sharding.py at its bars, and PPM main's 2-rank
+    exchange and step), multihost (PT 512^2, 8 iterations, strided and
+    leased, against one process's film) and grad-shard's 2-rank part.
+    Returns the workers' launches summed over their ranks."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    from oppositerenderer_tpu_torch.integrators import pt
+    from oppositerenderer_tpu_torch.parallel.distributed import \
+        MultiHostRenderer
+    from oppositerenderer_tpu_torch.parallel.worker import (
+        config_from, render_unsharded, sharding_cases, spawn_ranks)
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    cases = ranks_cases()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ranks.npz"
+        t0 = time.perf_counter()
+        spawn_ranks(RANKS, cases, out, device="cuda", backend="gloo",
+                    timeout=600)
+        spawn_s = time.perf_counter() - t0
+        z = dict(np.load(out))
+    print(f"[shard-ranks] {RANKS} worker processes on the card over gloo: "
+          f"{len(cases)} cases in {spawn_s:.1f} s (start-up included)")
+    launches = {k: 0 for k in KERNELS}
+    for c in cases:
+        for k in KERNELS:
+            launches[k] += int(z[f"{c['name']}.launches.{k}"])
+
+    # the 64^2 cases against the unsharded card render
+    for c in sharding_cases(RANKS_SIZE):
+        name = c["name"]
+        got = z[f"{name}.image"]
+        want, stats = render_unsharded(c, dev)
+        want = want.cpu().numpy()
+        bits = name in ("pt", "ppm_all_gather")
+        ok = (np.array_equal(got, want) if bits else np.allclose(
+            got, want, rtol=RANKS_RTOL,
+            atol=RANKS_ATOL_OF_MAX * np.abs(want).max()))
+        err = float(np.abs(got - want).max())
+        print(f"[shard-ranks] {name} {RANKS_SIZE}^2 over {RANKS} ranks: "
+              f"max |sharded - unsharded| {err:.3g} "
+              f"({'bit for bit' if bits else f'bar rtol {RANKS_RTOL}'}); "
+              f"step {float(z[f'{name}.ms']):.1f} ms; launches "
+              + str({k: int(z[f'{name}.launches.{k}']) for k in KERNELS
+                     if int(z[f'{name}.launches.{k}'])}))
+        if not ok or not np.isfinite(got).all():
+            raise AssertionError(f"shard-ranks {name}: the sharded image "
+                                 "differs from the unsharded one")
+        for k, v in stats.items():
+            if not k.startswith("avg_") and float(z[f"{name}.stat.{k}"]) \
+                    != float(v):
+                raise AssertionError(f"shard-ranks {name}: stat {k}")
+
+    # PPM main over the ranks' partial grids
+    c = next(c for c in cases if c["name"] == "ppm_main")
+    got = z["ppm_main.image"].astype(np.float64)
+    want, stats = render_unsharded(c, dev)
+    want = want.double().cpu().numpy()
+    mean_rel = abs(got.mean() / want.mean() - 1.0)
+    agree = float(np.isclose(got, want, rtol=1e-3, atol=0.0).all(-1).mean())
+    print(f"[shard-ranks] PPM main {MAIN_SIZE}^2 all-to-all over {RANKS} "
+          f"ranks: {float(z['ppm_main.ms']):.1f} ms a step (the slower "
+          f"rank's); image mean off the unsharded by {mean_rel:.2e} (bar "
+          f"{RANKS_PPM_MEAN_RTOL}), {agree:.4f} of the pixels within rtol "
+          "1e-3; stats " + ", ".join(
+              f"{k} {float(z[f'ppm_main.stat.{k}']):.6g} (unsharded "
+              f"{float(v):.6g})" for k, v in stats.items())
+          + f", overflow {int(z['ppm_main.stat.photon_exchange_overflow'])}")
+    if mean_rel > RANKS_PPM_MEAN_RTOL or not np.isfinite(got).all():
+        raise AssertionError("shard-ranks PPM main: image mean off")
+    for k in ("photons_stored",):
+        if float(z[f"ppm_main.stat.{k}"]) != float(stats[k]):
+            raise AssertionError(f"shard-ranks PPM main: stat {k}")
+    x = {k: float(z[f"ppm_main_exchange.{k}"]) for k in (
+        "photon_power", "grid_power", "photons", "grid_photons", "overflow",
+        "bytes_per_rank", "ms")}
+    print(f"[shard-ranks] PPM main exchange: {x['photons']:.0f} photons, "
+          f"{x['grid_photons']:.0f} in the partial grids, overflow "
+          f"{x['overflow']:.0f}; summed power {x['photon_power']:.9g} "
+          f"photons, {x['grid_power']:.9g} grids; {x['bytes_per_rank']:.0f} "
+          f"bytes sent a rank; {x['ms']:.1f} ms (the slower rank's)")
+    if x["overflow"] or x["grid_photons"] != x["photons"] or abs(
+            x["grid_power"] / x["photon_power"] - 1) > EXCHANGE_POWER_RTOL:
+        raise AssertionError("shard-ranks: the exchange lost photons")
+
+    # multihost: against one process's film of the same iterations
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    mh = next(c for c in cases if c["name"] == "multihost_strided")
+    single = MultiHostRenderer(scene, cam, config_from(mh["cfg"]),
+                               seed=0).run(MULTIHOST_ITERS)
+    want = single.accum.cpu().numpy()
+    for name in ("multihost_strided", "multihost_leased"):
+        got = z[f"{name}.accum"]
+        ok = np.allclose(got, want, rtol=MULTIHOST_RTOL, atol=MULTIHOST_ATOL)
+        print(f"[multihost] {name.split('_')[1]}: {RANKS} processes, "
+              f"{int(z[f'{name}.iterations'])} iterations (per process "
+              f"{z[f'{name}.rendered'].tolist()}), merged film against one "
+              f"process's: max |diff| {float(np.abs(got - want).max()):.3g} "
+              f"(rtol {MULTIHOST_RTOL}); merge "
+              f"{float(z[f'{name}.merge_ms']):.3f} ms (one all-reduce of the "
+              "film, the slower rank's)")
+        if (not ok or int(z[f"{name}.iterations"]) != MULTIHOST_ITERS
+                or not (z[f"{name}.rendered"] > 0).all()):
+            raise AssertionError(f"multihost {name}: merged film differs")
+
+    # grad-shard: 2 ranks at 64^2 against the unsharded gradient
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    cfg = RenderConfig(width=RANKS_SIZE, height=RANKS_SIZE)
+    key = make_root_key(0)
+    loss, grads = diff.render_loss_and_grad(
+        lambda s: pt.render_iteration(s, cam, cfg, 0, key), scene,
+        {("kd", 0): scene.materials.kd[0]})
+    gu = grads[("kd", 0)].double().cpu().numpy()
+    gs = z["grad_pt.grad.kd.0"].astype(np.float64)
+    rel = float(np.max(np.abs(gs - gu) / np.abs(gu)))
+    print(f"[grad-shard] PT {RANKS_SIZE}^2 d/dkd over {RANKS} gloo ranks: "
+          f"loss {float(z['grad_pt.loss']):.7g} (unsharded {float(loss):.7g})"
+          f", gradient {gs.tolist()} (unsharded {gu.tolist()}): max rel "
+          f"err {rel:.3g} (bound {GRAD_SHARD_RTOL}); "
+          f"{float(z['grad_pt.seconds']):.3f} s (the slower rank's)")
+    if rel > GRAD_SHARD_RTOL:
+        raise AssertionError("the 2-rank sharded gradient differs from the "
+                             "unsharded one")
+    return launches
+
+
 # The parent tree's entry points and their argument types, as its
 # accel/cuda_build.py has them at commit 11d34d2: B1 took the [9, T]
 # table, B2-B5 take what this tree's take.
@@ -2807,6 +3258,16 @@ def main() -> int:
                         ("photon-maps", (phase_photon_maps, dev))):
         for k, c in timed(phase, *args).items():
             launches[k] += c
+    mesh = one_rank_nccl_mesh(dev)
+    shard_launches, partial_err = timed("shard-main", phase_shard_main, dev,
+                                        mesh)
+    for k, c in shard_launches.items():
+        launches[k] += c
+    b3["max_abs_err"] = max(b3["max_abs_err"], partial_err)
+    timed("grad-shard", phase_grad_shard, dev, mesh)
+    torch.distributed.destroy_process_group()
+    for k, c in timed("ranks", phase_ranks, dev).items():
+        launches[k] += c
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k], **kernels[k]}

@@ -7,9 +7,10 @@ runs for CPU tensors. The package mirrors the JAX package's module paths.
 It covers path tracing, progressive photon mapping (also in a
 participating medium; on the sorted grid, the stochastic hash or the
 host-built kd-tree) and VCM with vertex merging, on the Cornell scenes
-(dense intersector), the BVH scenes and Collada/OBJ files, and gradients
-with respect to material and emission parameters (``diff``);
-``ROADMAP.md`` lists what follows.
+(dense intersector), the BVH scenes and Collada/OBJ files, gradients
+with respect to material and emission parameters (``diff``), and their
+distribution over ``torch.distributed`` (``parallel``: tile-sharded
+steps, iteration-sharded processes); ``ROADMAP.md`` lists what follows.
 """
 from .camera import Camera
 from .config import Intersector, RenderConfig, RenderMethod

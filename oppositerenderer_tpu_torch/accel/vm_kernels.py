@@ -245,31 +245,36 @@ def merge_vertices_tiled_kernel(starts, lens, weights, rows, scal, qtab,
     return out1, out2
 
 
-def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
-                 radius_sq, mis_vc_w, u_rows, depth1):
-    """Everything the pair loop takes, for one merge round
-    (pallas_vm.py:274-312): the cell order of the queries, the slot tables,
-    the slots' grid rows, the scalars, the cell-sorted query table, the
-    grid, and the per-query colours kd/pi and rho_phong. Returns (order,
-    (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho)."""
-    n = cam_pos.shape[0]
-    dev = cam_pos.device
-    radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32, device=dev)
+def _merge_queries(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
+                   mis_vc_w):
+    """Each camera vertex's grid cell (inactive ones past the last cell),
+    query table row and colours kd/pi and rho_phong, in lane order."""
     res = vgrid.resolution
-    n_cells = res ** 3
     # inactive lanes may carry non-finite positions: masked before the
     # float -> int cast, whose result for NaN differs between libraries
     pos_c = torch.where(active[:, None], cam_pos, vgrid.origin)
     cells = cell_index_1d(cell_coords(pos_c, vgrid.origin, vgrid.cell_size,
                                       res), res)
-    cells = torch.where(active, cells, n_cells)   # inactive sort last
-    _, order = torch.sort(cells, stable=True)
-
+    cells = torch.where(active, cells, res ** 3)   # inactive sort last
     cam_cont = cam_bsdf.continuation_prob()
     if cfg.vcm_force_continuation_prob is not None:
         cam_cont = torch.full_like(cam_cont, cfg.vcm_force_continuation_prob)
     qtab = _query_table(cam_bsdf, cam_pos, cam_dVCM * mis_vc_w,
-                        cam_dVM * cam_cont, active)[order]
+                        cam_dVM * cam_cont, active)
+    kd_pi = cam_bsdf.kd * INV_PI
+    rho = cam_bsdf.ks * ((cam_bsdf.phong_exp + 2.0) * (0.5 * INV_PI))[:, None]
+    return cells, qtab, kd_pi, rho
+
+
+def _sorted_tables(vgrid, cfg, cells, qtab, kd_pi, rho, radius_sq, mis_vc_w,
+                   u_rows, depth1):
+    """The queries sorted by cell (stably, as JAX's ``lax.sort``) and the
+    slot tables of their tiles: (order, (starts, lens, weights, rows, scal,
+    qtab, vgrid), kd_pi, rho), the last three in cell order."""
+    dev = qtab.device
+    radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32, device=dev)
+    _, order = torch.sort(cells, stable=True)
+    qtab = qtab[order]
     starts, lens, weights, _, _, rows = _tile_tables(
         vgrid, qtab[:, 0:3], torch.sqrt(radius_sq), u_rows,
         valid=qtab[:, 24] > 0.5)
@@ -277,10 +282,20 @@ def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
         torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
         for x in (radius_sq, mis_vc_w, float(depth1),
                   float(cfg.vcm_max_path_length))])
-    kd_pi = (cam_bsdf.kd * INV_PI)[order]
-    rho = (cam_bsdf.ks * ((cam_bsdf.phong_exp + 2.0)
-                          * (0.5 * INV_PI))[:, None])[order]
-    return order, (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho
+    return (order, (starts, lens, weights, rows, scal, qtab, vgrid),
+            kd_pi[order], rho[order])
+
+
+def merge_tables(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active,
+                 radius_sq, mis_vc_w, u_rows, depth1):
+    """Everything the pair loop takes, for one merge round
+    (pallas_vm.py:274-312): the cell order of the queries, the slot tables,
+    the slots' grid rows, the scalars, the cell-sorted query table, the
+    grid, and the per-query colours kd/pi and rho_phong. Returns (order,
+    (starts, lens, weights, rows, scal, qtab, vgrid), kd_pi, rho)."""
+    return _sorted_tables(vgrid, cfg, *_merge_queries(
+        vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active, mis_vc_w),
+        radius_sq, mis_vc_w, u_rows, depth1)
 
 
 @zero_gradient
@@ -296,23 +311,49 @@ def _merged(kd_pi, rho, *args):
 
 def merge_vertices_tiled(vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM,
                          cam_dVM, active, radius_sq, mis_vc_w,
-                         n_light_paths, u_rows, depth1) -> Tensor:
+                         n_light_paths, u_rows, depth1, mesh=None) -> Tensor:
     """Tile-shared merge round (pallas_vm.py:260-321) -> contribution
     [N,3], already times cam_thr: the tile path of
     ``integrators/vcm._merge_vertices``. N is a multiple of TILE;
     ``u_rows`` is [N // TILE, ROWS + 2] uniforms, drawn per raster lane and
     applied to the cell-sorted tiles, as in JAX. The kernel for CUDA
     tensors, the plain version for CPU tensors; the merged sums have a
-    zero gradient on both."""
+    zero gradient on both.
+
+    With a process-group ``mesh`` (``parallel.mesh.Mesh``; N is then this
+    rank's band of camera vertices) the tiles are the whole image's: the
+    ranks all-gather their queries, sort them all by cell, each merges
+    its share of the tiles, and one ``psum_scatter`` returns each rank its
+    band, so that every vertex meets the tile and uniforms it meets
+    unsharded."""
     n = cam_pos.shape[0]
     if n % TILE:
         raise ValueError(f"{n} queries are not a multiple of {TILE}")
-    order, args, kd_pi, rho = merge_tables(
-        vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM, cam_dVM, active, radius_sq,
-        mis_vc_w, u_rows, depth1)
-    acc_s = _merged(kd_pi, rho, *args)
-    acc = torch.empty_like(acc_s)
-    acc[order] = acc_s
+    queries = _merge_queries(vgrid, cfg, cam_bsdf, cam_pos, cam_dVCM,
+                             cam_dVM, active, mis_vc_w) + (u_rows,)
+    sharded = mesh is not None and mesh.group is not None
+    if sharded:
+        # the sums have a zero gradient: the queries travel detached
+        queries = tuple(mesh.all_gather(a.detach()) for a in queries)
+    cells, qtab, kd_pi, rho, u_rows = queries
+    order, args, kd_pi, rho = _sorted_tables(
+        vgrid, cfg, cells, qtab, kd_pi, rho, radius_sq, mis_vc_w, u_rows,
+        depth1)
+    if sharded:
+        starts, lens, weights, rows, scal, qtab, g = args
+        t = starts.shape[0] // mesh.size
+        ts = slice(mesh.rank * t, (mesh.rank + 1) * t)
+        qs = slice(mesh.rank * t * TILE, (mesh.rank + 1) * t * TILE)
+        acc_s = _merged(kd_pi[qs], rho[qs], starts[ts], lens[ts],
+                        weights[ts], rows[ts], scal, qtab[qs], g)
+        acc = torch.zeros((qtab.shape[0], 3), dtype=acc_s.dtype,
+                          device=acc_s.device)
+        acc[order[qs]] = acc_s.detach()
+        acc = mesh.psum_scatter(acc)
+    else:
+        acc_s = _merged(kd_pi, rho, *args)
+        acc = torch.empty_like(acc_s)
+        acc[order] = acc_s
     radius_sq = args[4][0]
     norm = 1.0 / (torch.pi * radius_sq * n_light_paths)
     return cam_thr * acc * norm

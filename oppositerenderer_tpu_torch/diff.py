@@ -13,8 +13,9 @@ The kernels give their inputs a zero gradient on both devices
 (``accel/zero_grad``), as the JAX package's ``custom_vjp``s do. So the
 tile gather (PPM) and the tile merge (VCM+VM) drop the photon-power and
 merge terms; the budgeted gather and merge, taken when the image does
-not tile, keep them. The sharded loss and gradient arrive with the
-port's distribution.
+not tile, keep them. :func:`make_sharded_loss_and_grad` differentiates
+the tile-sharded render (``parallel/render.py``) through its
+collectives.
 """
 from __future__ import annotations
 
@@ -65,6 +66,58 @@ def scale_emission(scene: Scene, scale) -> Scene:
                             emission=lt.emission * scale))
 
 
+def _with_values(scene: Scene, keys, values) -> Scene:
+    """``scene`` with each (field, material_idx) key set to its value
+    (``"emission_scale"``, whose index is ignored, scales the emission)."""
+    for (field, idx), v in zip(keys, values):
+        scene = (scale_emission(scene, v) if field == "emission_scale"
+                 else set_material_param(scene, field, idx, v))
+    return scene
+
+
+def make_sharded_loss_and_grad(scene: Scene, camera, cfg, mesh, wrt:
+                               Mapping):
+    """Sharded differentiable rendering: ``fn(values=None, iteration=0,
+    key=None, radius_sq=0.002) -> (loss, grads)`` on every rank of
+    ``mesh``, loss the mean radiance of the whole image.
+
+    Each rank builds the scene from the parameters (``wrt`` maps (field,
+    material_idx) to an initial value, as in :func:`render_loss_and_grad`;
+    ``values`` replaces them in key order), renders its band
+    (``parallel.render.make_sharded_render_raw``), takes ``loss_local =
+    band.sum() / (H W 3)`` and back-propagates it: each collective's
+    backward carries the cotangents of the other ranks' bands to the
+    values this rank contributed (the store, the photons, the splats).
+    One ``psum`` then sums the losses and every parameter's gradient over
+    ranks. ``key`` None is the root key of seed 0."""
+    from .core.rng import make_root_key
+    from .parallel.render import make_sharded_render_raw
+    raw = make_sharded_render_raw(scene, camera, cfg, mesh)
+    keys = list(wrt)
+    dev = scene.device
+    n_values = 3 * cfg.width * cfg.height
+
+    def fn(values=None, iteration=0, key=None, radius_sq=0.002):
+        vals = [wrt[k] for k in keys] if values is None else values
+        vals = [torch.as_tensor(v, dtype=torch.float32, device=dev)
+                .detach().clone().requires_grad_(True) for v in vals]
+        band, _ = raw(_with_values(scene, keys, vals), iteration,
+                      make_root_key(0) if key is None else key, radius_sq)
+        loss_local = band.sum() / n_values
+        grads = torch.autograd.grad(loss_local, vals, allow_unused=True)
+        flat = torch.cat([loss_local.detach().reshape(1)] + [
+            (torch.zeros_like(v) if g is None else g).reshape(-1)
+            for v, g in zip(vals, grads)])
+        total = mesh.psum(flat)
+        out, i = {}, 1
+        for k, v in zip(keys, vals):
+            out[k] = total[i:i + v.numel()].reshape(v.shape)
+            i += v.numel()
+        return total[0], out
+
+    return fn
+
+
 def render_loss_and_grad(render_fn: Callable[[Scene], torch.Tensor],
                          scene: Scene, wrt: Mapping):
     """The mean of ``render_fn(scene')`` and its gradients, where ``scene'``
@@ -76,10 +129,6 @@ def render_loss_and_grad(render_fn: Callable[[Scene], torch.Tensor],
     dev = scene.device
     values = [torch.as_tensor(wrt[k], dtype=torch.float32, device=dev)
               .detach().clone().requires_grad_(True) for k in keys]
-    s = scene
-    for (field, idx), v in zip(keys, values):
-        s = (scale_emission(s, v) if field == "emission_scale"
-             else set_material_param(s, field, idx, v))
-    loss = torch.mean(render_fn(s))
+    loss = torch.mean(render_fn(_with_values(scene, keys, values)))
     grads = torch.autograd.grad(loss, values)
     return loss.detach(), dict(zip(keys, grads))

@@ -400,10 +400,9 @@ def _volumetric(medium: Medium, cfg: RenderConfig, hp: HitpointBuffer,
                 vol_photons: PhotonBatch, radius: Tensor, est_key: Key,
                 pixel_lanes: Tensor) -> Tensor:
     """The in-scattered radiance [N,3] at each pixel's reservoir-picked
-    eye segment, reweighted by the inverse pick probability. The volume
-    density needs a wider support: the budgeted gather at 3r without the
-    normal test, on every device, as in the JAX package (no tile kernel
-    computes it)."""
+    eye segment. The volume density needs a wider support: the budgeted
+    gather at 3r without the normal test, on every device, as in the JAX
+    package (no tile kernel computes it)."""
     vol_radius = radius * 3.0
     vgrid = build_photon_grid(
         vol_photons, cfg.photon_grid_resolution,
@@ -414,20 +413,30 @@ def _volumetric(medium: Medium, cfg: RenderConfig, hp: HitpointBuffer,
                              max_cells_per_axis=4,
                              budget_total=cfg.gather_photon_budget,
                              check_normal=False, u_stride=s_vg.next1())
+    return volumetric_estimate(medium, cfg, hp, vpow, radius)
+
+
+def volumetric_estimate(medium: Medium, cfg: RenderConfig,
+                        hp: HitpointBuffer, vpow: Tensor,
+                        radius: Tensor) -> Tensor:
+    """The in-scattered radiance [N,3] from the volume gather's power
+    ``vpow`` (at 3 ``radius``), reweighted by the inverse probability of
+    the reservoir's pick."""
     sel_ok = hp.vol_w > 0.0
     inv_pick = torch.where(
         sel_ok, hp.vol_wsum / torch.clamp_min(hp.vol_w, 1e-30), 0.0)
     volumetric = volumetric_radiance_estimate(
-        medium, vpow, vol_radius, hp.vol_len, hp.vol_t,
+        medium, vpow, radius * 3.0, hp.vol_len, hp.vol_t,
         cfg.photons_per_iteration, weight=hp.vol_atten * inv_pick[:, None])
     return torch.where(sel_ok[:, None], volumetric, 0.0)
 
 
-def _grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
-                 radius: Tensor, est_key: Key, pixel_lanes: Tensor):
+def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
+                radius: Tensor, est_key: Key, pixel_lanes: Tensor):
     """The sorted grid's build and gather: the tile gather when the image
-    splits into 16x16 blocks, the budgeted gather otherwise. Returns
-    (power [N,3], per-query stats)."""
+    splits into 16x16 blocks (``hp`` then holds the whole image's
+    hitpoints), the budgeted gather otherwise. Reads ``hp.position``,
+    ``ns`` and ``found``. Returns (power [N,3], per-query stats)."""
     W, H = cfg.width, cfg.height
     n = W * H
     dev = radius.device
@@ -486,8 +495,8 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     structure = cfg.photon_map_structure
     if structure == PhotonMapStructure.SORTED_UNIFORM_GRID:
-        accum_power, gather_stats = _grid_gather(cfg, hp, photons, radius,
-                                                 est_key, pixel_lanes)
+        accum_power, gather_stats = grid_gather(cfg, hp, photons, radius,
+                                                est_key, pixel_lanes)
     elif structure == PhotonMapStructure.KD_TREE_CPU:
         with torch.profiler.record_function("ppm_kdtree_build"):
             tree = build_photon_kdtree(photons)
@@ -503,6 +512,25 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
             accum_power, gather_stats = gather_stochastic_hash(
                 table, hp.position, hp.ns, radius)
 
+    radiance = shade(scene, cfg, hp, accum_power, radius_sq, est_key,
+                     pixel_lanes, eps)
+    if scene.medium is not None:
+        with torch.profiler.record_function("ppm_volume_gather"):
+            radiance = radiance + _volumetric(scene.medium, cfg, hp,
+                                              vol_photons, radius, est_key,
+                                              pixel_lanes)
+    radiance = radiance.reshape(H, W, 3)
+    stats = dict(**photon_stats,
+                 **{k: torch.sum(v) for k, v in gather_stats.items()})
+    return radiance, stats
+
+
+def shade(scene: Scene, cfg: RenderConfig, hp: HitpointBuffer,
+          accum_power: Tensor, radius_sq: Tensor, est_key: Key,
+          pixel_lanes: Tensor, eps: Tensor) -> Tensor:
+    """A pixel's radiance [N,3] without the medium: the indirect estimate
+    from the gathered photon power, the direct estimate at the hitpoint,
+    and the emitter, specular and miss pixels' stored radiance."""
     brdf = hp.kd / torch.pi  # the reference uses kd (module docstring)
     indirect = (accum_power * brdf * hp.attenuation
                 / (torch.pi * radius_sq * cfg.photons_per_iteration))
@@ -524,14 +552,4 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
     # in reference_faithful mode here
     passthrough = (torch.clamp_max(hp.radiance, 1.0)
                    if cfg.reference_faithful else hp.radiance)
-
-    radiance = direct + indirect + passthrough
-    if scene.medium is not None:
-        with torch.profiler.record_function("ppm_volume_gather"):
-            radiance = radiance + _volumetric(scene.medium, cfg, hp,
-                                              vol_photons, radius, est_key,
-                                              pixel_lanes)
-    radiance = radiance.reshape(H, W, 3)
-    stats = dict(**photon_stats,
-                 **{k: torch.sum(v) for k, v in gather_stats.items()})
-    return radiance, stats
+    return direct + indirect + passthrough

@@ -359,7 +359,7 @@ def build_vertex_grid(scene: Scene, cfg: RenderConfig,
 def _merge_vertices(scene: Scene, cfg: RenderConfig, cam_bsdf: BSDF,
                     cam_pos, cam_thr, cam_dVCM, cam_dVM, active,
                     vgrid: VertexGrid, radius_sq, mis_vc_w, n_light_paths,
-                    u_stride, depth1):
+                    u_stride, depth1, mesh=None):
     """One camera bounce's merge against the light-vertex grid -> the
     contribution [n,3], already times cam_thr.
 
@@ -381,7 +381,8 @@ def _merge_vertices(scene: Scene, cfg: RenderConfig, cam_bsdf: BSDF,
         u_rows = u_stride.reshape(n // TILE, TILE)[:, :ROWS + 2]
         return merge_vertices_tiled(
             vgrid, cfg, cam_bsdf, cam_pos, cam_thr, cam_dVCM, cam_dVM,
-            active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1)
+            active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1,
+            mesh=mesh)
 
     radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32,
                                 device=cam_pos.device)
@@ -430,12 +431,15 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
                       n_light_paths: int, px: Tensor, py: Tensor,
                       lane_ids: Tensor, pair: Tensor,
                       vgrid: VertexGrid | None = None,
-                      radius_sq: Tensor | None = None) -> Tensor:
+                      radius_sq: Tensor | None = None,
+                      mesh=None) -> Tensor:
     """Camera subpaths with every technique -> radiance [n,3].
 
     ``pair`` indexes rows of ``store`` (1:1 pairing, vcm.h:603-607);
     ``n_light_paths`` is the global count. ``vgrid``/``radius_sq`` enable
-    the merge rounds and are required when ``cfg.vcm_use_vm``."""
+    the merge rounds and are required when ``cfg.vcm_use_vm``. A sharded
+    step passes its ``mesh``: the tile merge then tiles the whole image's
+    camera vertices (``accel/vm_kernels.merge_vertices_tiled``)."""
     if cfg.vcm_use_vm and vgrid is None:
         raise ValueError("cfg.vcm_use_vm requires a VertexGrid "
                          "(build_vertex_grid) and radius_sq")
@@ -590,7 +594,7 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
                 color = color + _merge_vertices(
                     scene, cfg, bsdf, hit.position, throughput, dVCM, dVM,
                     connectable, vgrid, radius_sq, mis_vc_w, n_light_paths,
-                    u_merge, depth1)
+                    u_merge, depth1, mesh=mesh)
 
         # terminate if the path is too long, else scatter
         can_continue = live2 & (depth1 < cfg.vcm_max_path_length)

@@ -101,16 +101,22 @@ def min_cell_size_for_window(radius: Tensor, max_cells_per_axis: int
     return (2.0 * radius / (max_cells_per_axis - 1)) * (1.0 + 1e-5)
 
 
-def photon_grid_geometry(photons: PhotonBatch, resolution: int,
-                         min_cell_size: Tensor | None = None
-                         ) -> tuple[Tensor, Tensor]:
-    """(origin, cell_size) of the uniform grid over the photons' masked
-    AABB, with an optional cell-size floor."""
+def masked_bounds(photons: PhotonBatch) -> tuple[Tensor, Tensor, Tensor]:
+    """(min [3], max [3], any valid) over the valid photons."""
     p = photons.position
     v = photons.valid[:, None]
-    pmin = torch.amin(torch.where(v, p, BIG), dim=0)
-    pmax = torch.amax(torch.where(v, p, -BIG), dim=0)
-    any_valid = torch.any(photons.valid)
+    return (torch.amin(torch.where(v, p, BIG), dim=0),
+            torch.amax(torch.where(v, p, -BIG), dim=0),
+            torch.any(photons.valid))
+
+
+def geometry_from_bounds(pmin: Tensor, pmax: Tensor, any_valid: Tensor,
+                         resolution: int,
+                         min_cell_size: Tensor | None = None
+                         ) -> tuple[Tensor, Tensor]:
+    """(origin, cell_size) of the uniform grid over the bounds [pmin,
+    pmax] (the unit box when nothing is valid), with an optional
+    cell-size floor."""
     pmin = torch.where(any_valid, pmin, 0.0)
     pmax = torch.where(any_valid, pmax, 1.0)
     extent = torch.clamp_min(pmax - pmin, 1e-6)
@@ -121,18 +127,33 @@ def photon_grid_geometry(photons: PhotonBatch, resolution: int,
     return pmin, cell_size
 
 
+def photon_grid_geometry(photons: PhotonBatch, resolution: int,
+                         min_cell_size: Tensor | None = None
+                         ) -> tuple[Tensor, Tensor]:
+    """(origin, cell_size) of the uniform grid over the photons' masked
+    AABB, with an optional cell-size floor."""
+    return geometry_from_bounds(*masked_bounds(photons), resolution,
+                                min_cell_size)
+
+
 def build_photon_grid(photons: PhotonBatch, resolution: int,
-                      min_cell_size: Tensor | None = None) -> PhotonGrid:
+                      min_cell_size: Tensor | None = None,
+                      origin: Tensor | None = None,
+                      cell_size: Tensor | None = None) -> PhotonGrid:
     """createUniformGridPhotonMap (OptixRenderer_SpatialHash.cu:209-283).
 
     ``min_cell_size`` floors the cell size: pass
     :func:`min_cell_size_for_window` of the gather radius so the gather's
-    fixed cell window is exact. The sort's permutation moves the photons
+    fixed cell window is exact. ``origin``/``cell_size`` pin the geometry
+    instead: the sharded exchange (``parallel/exchange.py``) computes them
+    from the global photon AABB, so that every rank's partial grid shares
+    one coordinate system. The sort's permutation moves the photons
     once, as packed records; the grid's position, power and direction are
     views of their columns.
     """
-    origin, cell_size = photon_grid_geometry(photons, resolution,
-                                             min_cell_size)
+    if origin is None or cell_size is None:
+        origin, cell_size = photon_grid_geometry(photons, resolution,
+                                                 min_cell_size)
     p = photons.position
     n_cells = resolution ** 3
     cells = cell_index_1d(cell_coords(p, origin, cell_size, resolution),

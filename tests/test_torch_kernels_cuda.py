@@ -607,3 +607,51 @@ def test_loaders_put_every_tensor_on_the_card(cuda, tmp_path):
         off = [k for k, v in found.items() if v.device.type != "cuda"
                and not k.startswith("bvh.nodes_")]
         assert not off and len(found) > 20, off
+
+
+@pytest.mark.parametrize("name", ["ppm_all_to_all", "vcm_vm"])
+def test_sharded_step_over_a_gloo_rank_on_the_card(cuda, name):
+    """The sharded step over a one-rank gloo group with the scene on the
+    card: every collective carries its CUDA tensors through explicit host
+    copies, B3 runs on the exchange's partial grid and B4 on the whole
+    image's tiles, with the unsharded launches, and the band equals the
+    unsharded iteration (PPM bit for bit; VCM+VM within rtol 1e-5 + 1e-6
+    max|ref|: its t=1 splats add atomically)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    from oppositerenderer_tpu_torch.parallel import (make_mesh,
+                                                     make_sharded_render_fn)
+    from oppositerenderer_tpu_torch.parallel.worker import (
+        case_scene, config_from, free_port, kernel_wrappers,
+        render_unsharded, sharding_cases)
+    case = next(c for c in sharding_cases(64) if c["name"] == name)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(device=cuda)
+        assert (mesh.backend, mesh.group is not None) == ("gloo", True)
+        scene, cam = case_scene(case, cuda)
+        step = make_sharded_render_fn(scene, cam, config_from(case["cfg"]),
+                                      mesh)
+        counts = []
+        for fn in (lambda: step(case["iteration"],
+                                make_root_key(case["seed"]),
+                                case["radius_sq"])[0],
+                   lambda: render_unsharded(case, cuda)[0]):
+            for w in kernel_wrappers():
+                w.launches = 0
+            counts.append((fn(), [w.launches for w in kernel_wrappers()]))
+    finally:
+        dist.destroy_process_group()
+    (band, sharded), (want, unsharded) = counts
+    assert sharded == unsharded and sharded[2 if name.startswith("ppm")
+                                            else 3] > 0
+    if name.startswith("ppm"):
+        assert torch.equal(band, want)
+    else:
+        torch.testing.assert_close(band, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
