@@ -18,8 +18,9 @@ and the script exits non-zero without printing the result line:
                  and CUDA versions, ``nvidia-smi``'s name and power limit,
                  and PIL's version (or "absent").
 2. build       - one nvcc per source, all started together, compiles
-                 ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``
-                 and ``csrc/bvh.cu`` for sm_90a, and one more links them into
+                 ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``,
+                 ``csrc/bvh.cu`` and ``csrc/packet_exp.cu`` for sm_90a, and
+                 one more links them into
                  one library; prints its cache key, the build time and
                  ptxas' registers and spills. Then g++ must build the
                  host libraries (``native/bvh_builder.cpp``,
@@ -68,6 +69,14 @@ and the script exits non-zero without printing the result line:
                  the parent's library: B2 over one VCM iteration, B3 at
                  the PPM main shape, B4 and B5 on every call of their
                  iterations).
+3a. b6         - the packet node-step microbenchmark's kernel (B6) against
+                 its plain version bit for bit at the defaults (64 tiles,
+                 64 steps, 49,152 rows) and at 528 tiles (4 for each SM),
+                 each timed (kernel and plain) with its bound (8 slab tests
+                 of 24 FP32 operations a ray and step); then the
+                 microbenchmark's entry point (``python -m
+                 oppositerenderer_tpu_torch.scripts.packet_kernel_exp``'s
+                 main) at its defaults: its two lines, 1 + 5 launches.
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -182,11 +191,25 @@ and the script exits non-zero without printing the result line:
                  the merged film against one process's at rtol 2e-5, atol
                  1e-6; merge ms); and grad-shard's 2-rank PT gradient at
                  64^2 against the unsharded one (rel 5e-3).
+23. tooling    - ``debug.check_iteration`` finds no NaN or infinity in any
+                 pass output of PT, PPM and VCM main; the photon
+                 histogram (2^16 photons) on the card against the CPU's
+                 (at most 0.1% of the paths one deposit apart);
+                 ``core.profiling.trace`` of a PT main iteration holds a
+                 CUDA kernel and the pt_raytrace_pass range; the device
+                 table lists the card and the CPU.
+24. viewer     - ``viewer.RenderService`` at PT main behind
+                 ``make_server(port=0)``: frames and stats over HTTP until
+                 4 iterations, a switch to PPM and then VCM (each restarts
+                 and serves a decodable, finite, non-black frame), a gamma
+                 change with no restart, a clean stop of both threads; the
+                 renders must have launched B1, B2 and B3.
 
 The line before the last is a JSON object with the kernels' launches over
 the main phases (5, 8, 8b, 11, 12, 15, 16, 18, 19, 20's sharded timed
-steps and 22's workers, summed over their ranks), errors, times and
-bounds; the last line is ``{"ok": true, "device": {...}}``.
+steps and 22's workers, summed over their ranks; B6's over 3a's run of
+the microbenchmark), errors, times and bounds; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -329,6 +352,19 @@ MULTIHOST_ITERS = 8
 MULTIHOST_RTOL, MULTIHOST_ATOL = 2e-5, 1e-6
 GRAD_SHARD_RTOL = 5e-3
 
+# b6: the microbenchmark's defaults (scripts/packet_kernel_exp.py), and
+# 528 = 4 x 132 tiles: 4 blocks for each SM of the H100
+B6_STEPS, B6_TILES, B6_ROWS = 64, 64, 48 * 1024
+B6_WIDE_TILES = 528
+B6_SCRIPT_REPS = 5
+# tooling: photons of the histogram held card against CPU; a path may end
+# one deposit apart after a last-ulp difference (tests/test_torch_debug.py)
+HISTOGRAM_PHOTONS = 1 << 16
+HISTOGRAM_MAX_MOVED = 1e-3
+# viewer: iterations the first frame waits for, and each wait's deadline
+VIEWER_ITERS = 4
+VIEWER_TIMEOUT_S = 300
+
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
 # bytes/s and FP32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -349,6 +385,7 @@ KERNELS = {
     "merge_vertices_tiled": "oppositerenderer_tpu/accel/pallas_vm.py:64",
     "traverse": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
     "traverse_any": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
+    "packet_steps": "scripts/packet_kernel_exp.py:124",
 }
 KERNEL_SOURCES = {
     "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
@@ -357,6 +394,7 @@ KERNEL_SOURCES = {
     "merge_vertices_tiled": "oppositerenderer_tpu_torch/csrc/vm.cu",
     "traverse": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
+    "packet_steps": "oppositerenderer_tpu_torch/csrc/packet_exp.cu",
 }
 
 
@@ -2861,9 +2899,10 @@ def phase_ranks(dev) -> dict:
         z = dict(np.load(out))
     print(f"[shard-ranks] {RANKS} worker processes on the card over gloo: "
           f"{len(cases)} cases in {spawn_s:.1f} s (start-up included)")
-    launches = {k: 0 for k in KERNELS}
+    # the workers count the render paths' kernels (worker.kernel_wrappers)
+    launches = {k: 0 for k in _launch_counts()}
     for c in cases:
-        for k in KERNELS:
+        for k in launches:
             launches[k] += int(z[f"{c['name']}.launches.{k}"])
 
     # the 64^2 cases against the unsharded card render
@@ -2881,7 +2920,7 @@ def phase_ranks(dev) -> dict:
               f"max |sharded - unsharded| {err:.3g} "
               f"({'bit for bit' if bits else f'bar rtol {RANKS_RTOL}'}); "
               f"step {float(z[f'{name}.ms']):.1f} ms; launches "
-              + str({k: int(z[f'{name}.launches.{k}']) for k in KERNELS
+              + str({k: int(z[f'{name}.launches.{k}']) for k in launches
                      if int(z[f'{name}.launches.{k}'])}))
         if not ok or not np.isfinite(got).all():
             raise AssertionError(f"shard-ranks {name}: the sharded image "
@@ -2964,6 +3003,236 @@ def phase_ranks(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the packet node-step microbenchmark (B6)
+def b6_bound(steps: int, tiles: int) -> dict:
+    """B6's least time: 8 slab tests of SLAB_FLOPS operations a ray and
+    step; the bytes are the rows the steps read (48 floats each), the
+    rays' origins and directions, and best."""
+    flops = tiles * 1024 * steps * 8 * SLAB_FLOPS
+    n_bytes = (steps * tiles * 48 + 2 * tiles * 3 * 1024 + tiles * 1024) * 4
+    return bound(n_bytes, flops)
+
+
+def phase_b6(dev) -> tuple[dict, int]:
+    """B6 against its plain version bit for bit at the microbenchmark's
+    defaults and at B6_WIDE_TILES tiles, each timed with its bound; then
+    the microbenchmark's entry point (``python -m
+    oppositerenderer_tpu_torch.scripts.packet_kernel_exp``'s main) at its
+    defaults, its two lines printed and its launches counted."""
+    import io
+
+    from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+    from oppositerenderer_tpu_torch.scripts import packet_kernel_exp as script
+    out = {"max_abs_err": 0.0}
+    for tiles in (B6_TILES, B6_WIDE_TILES):
+        table, o, d = script.make_inputs(B6_ROWS, tiles, dev)
+        got = pk.packet_steps(table, o, d, B6_STEPS)
+        want = pk.plain_packet_steps(table, o, d, B6_STEPS)
+        bad = _bits_differ(got, want)
+        if bad:
+            raise AssertionError(f"packet_steps differs from its plain "
+                                 f"version at {tiles} tiles in {bad} rays")
+        entry = {"ms": cuda_ms(lambda: pk.packet_steps(table, o, d,
+                                                        B6_STEPS)),
+                 "plain_ms": cuda_ms(lambda: pk.plain_packet_steps(
+                     table, o, d, B6_STEPS), reps=3, warmup=1, batch=1,
+                     graph=False),
+                 **b6_bound(B6_STEPS, tiles),
+                 "hit_share": float((got < 1e30).float().mean())}
+        print(f"[b6] {tiles} tiles x 1024 rays, {B6_STEPS} steps, "
+              f"{B6_ROWS} rows: equal to plain bit for bit (rays with a "
+              f"hit {entry['hit_share']:.4f}); ms kernel {entry['ms']:.4f}, "
+              f"plain {entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f} "
+              f"({entry['bound_by']})")
+        if tiles == B6_TILES:
+            out.update(entry)
+        else:
+            out[f"{tiles} tiles"] = entry
+    pk.packet_steps.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        script.main(["--reps", str(B6_SCRIPT_REPS)])
+    launches = pk.packet_steps.launches
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[b6] packet_kernel_exp: {line}")
+    want_head = (f"device={torch.cuda.get_device_name(dev)} G={B6_TILES} "
+                 f"STEPS={B6_STEPS} R={B6_ROWS}")
+    if len(lines) != 2 or lines[0] != want_head:
+        raise AssertionError(f"packet_kernel_exp printed {lines}")
+    if launches != 1 + B6_SCRIPT_REPS:
+        raise AssertionError(f"packet_kernel_exp launched B6 {launches} "
+                             f"times, not {1 + B6_SCRIPT_REPS}")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# tooling and the viewer
+def phase_tooling(dev) -> None:
+    """``debug.check_iteration`` on PT, PPM and VCM main; the photon
+    histogram on the card against the CPU; ``core.profiling.trace`` of a
+    PT main iteration (a CUDA kernel and the pass scope in the trace); the
+    device table."""
+    from oppositerenderer_tpu_torch import debug
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.core.profiling import TRACE_FILE, trace
+    from oppositerenderer_tpu_torch.devices import ComputeDeviceRepository
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    pt_cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
+    for label, cfg in (("PT", pt_cfg), ("PPM", ppm_main_config()),
+                       ("VCM", vcm_main_config())):
+        t0 = time.perf_counter()
+        msg, radiance = debug.check_iteration(scene, cam, cfg)
+        if msg is not None:
+            raise AssertionError(f"check_iteration {label}: {msg}")
+        if not bool(torch.isfinite(radiance).all()):
+            raise AssertionError(f"check_iteration {label}: non-finite "
+                                 "radiance")
+        print(f"[tooling] check_iteration {MAIN_SCENE} {MAIN_SIZE}^2 "
+              f"{label}: no pass output holds a NaN or an infinity "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+    hcfg = RenderConfig(photons_per_iteration=HISTOGRAM_PHOTONS)
+    cpu_scene, _ = get_scene_by_name(MAIN_SCENE, "cpu")
+    got = debug.photon_depth_histogram(scene, hcfg)
+    want = debug.photon_depth_histogram(cpu_scene, hcfg)
+    hist, ref = got["deposits_histogram"], want["deposits_histogram"]
+    moved = int(np.abs(hist.astype(np.int64) - ref).sum()) // 2
+    print(f"[tooling] photon_depth_histogram {HISTOGRAM_PHOTONS} photons: "
+          f"card {hist.tolist()}, CPU {ref.tolist()}; stored "
+          f"{got['photons_stored']} / {want['photons_stored']}; "
+          f"{'equal' if moved == 0 else f'{moved} paths moved'}")
+    if hist.sum() != HISTOGRAM_PHOTONS or moved > (HISTOGRAM_MAX_MOVED
+                                                   * HISTOGRAM_PHOTONS):
+        raise AssertionError("the photon histogram on the card differs from "
+                             "the CPU's")
+
+    r = Renderer(scene, cam, pt_cfg, seed=0)
+    r.render_next_iteration()
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            r.render_next_iteration()
+        events = json.loads((Path(logdir) / TRACE_FILE).read_text())[
+            "traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ours = sorted(k for k in kernels if "closest" in k or "occluded" in k)
+    scopes = [e for e in events if e.get("name") == "pt_raytrace_pass"]
+    print(f"[tooling] trace: {len(events)} events, {len(kernels)} kernel "
+          f"names (B1/B2: {ours}), {len(scopes)} pt_raytrace_pass ranges")
+    if not kernels or not scopes:
+        raise AssertionError("the trace holds no CUDA kernel or no "
+                             "pt_raytrace_pass range")
+
+    table = ComputeDeviceRepository.enumerate().table()
+    print("[tooling] devices:\n" + "\n".join(
+        f"[tooling]   {row}" for row in table.splitlines()))
+    if torch.cuda.get_device_name(dev) not in table or "cpu" not in table:
+        raise AssertionError("the device table misses the card or the CPU")
+
+
+def phase_viewer(dev) -> None:
+    """The live viewer on the card: ``RenderService`` at PT main behind
+    ``make_server(port=0)``; frames and stats until VIEWER_ITERS
+    iterations; a switch to PPM and then VCM, each restarting and serving
+    a decodable, finite, non-black frame; a gamma change with no restart;
+    a clean stop."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    from oppositerenderer_tpu_torch.viewer import RenderService, make_server
+
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    svc = RenderService(scene, cam, RenderConfig(width=MAIN_SIZE,
+                                                 height=MAIN_SIZE), seed=0)
+    server = make_server(svc, port=0)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as resp:
+            return resp.read(), dict(resp.headers)
+
+    def stats():
+        return json.loads(get("/stats")[0])
+
+    def wait_for(pred, what):
+        deadline = time.monotonic() + VIEWER_TIMEOUT_S
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.05)
+        raise AssertionError(f"viewer: {what} within {VIEWER_TIMEOUT_S} s; "
+                             f"stats {stats()}")
+
+    def frame(label):
+        png, headers = get("/frame.png")
+        img = np.asarray(Image.open(io.BytesIO(png)), np.float64)
+        mean = float(img.mean())
+        if img.shape != (MAIN_SIZE, MAIN_SIZE, 3) or not 0.0 < mean < 255.0:
+            raise AssertionError(f"viewer {label}: frame {img.shape}, mean "
+                                 f"{mean}")
+        return png, int(headers["X-Iteration"]), mean
+
+    _reset_launches()
+    serving.start()
+    svc.start()
+    t0 = time.perf_counter()
+    try:
+        wait_for(lambda: stats()["iterations"] >= VIEWER_ITERS,
+                 f"{VIEWER_ITERS} PT iterations")
+        _, it, mean = frame("pt")
+        s = stats()
+        print(f"[viewer] PT {MAIN_SIZE}^2 on {s['device']}: frame of "
+              f"iteration {it}, mean {mean:.2f}; {s['iteration_seconds']:.4f} "
+              f"s/iteration; {time.perf_counter() - t0:.1f} s")
+        for method in ("ppm", "vcm"):
+            seq0 = s["sequence_number"]
+            get(f"/set?method={method}")
+            wait_for(lambda: (stats()["render_method"] == method
+                              and stats()["sequence_number"] == seq0 + 1
+                              and stats()["iterations"] >= 1),
+                     f"a restart into {method}")
+            wait_for(lambda: int(get("/frame.png")[1]["X-Iteration"]) >= 1,
+                     f"a {method} frame")
+            _, it, mean = frame(method)
+            s = stats()
+            print(f"[viewer] /set?method={method}: sequence {seq0} -> "
+                  f"{s['sequence_number']}, frame of iteration {it}, mean "
+                  f"{mean:.2f}; {s['iteration_seconds']:.4f} s/iteration")
+        seq0 = s["sequence_number"]
+        png1, _, mean1 = frame("gamma 2.2")
+        get("/set?gamma=1.0")
+        png2, _, mean2 = frame("gamma 1.0")
+        if stats()["sequence_number"] != seq0 or png2 == png1 \
+                or not mean2 < mean1:
+            raise AssertionError("viewer: the gamma change restarted the "
+                                 "render or left the frame as it was")
+        print(f"[viewer] /set?gamma=1.0: no restart (sequence {seq0}), "
+              f"frame mean {mean1:.2f} -> {mean2:.2f}")
+    finally:
+        svc.stop()
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+    if serving.is_alive() or svc._thread.is_alive():
+        raise AssertionError("viewer: a thread outlived the stop")
+    launches = _launch_counts()
+    print(f"[viewer] stopped cleanly after {time.perf_counter() - t0:.1f} "
+          f"s; kernel launches {launches}")
+    for k in ("closest_hit_tris", "occluded_tris", "gather_photons_tiled"):
+        if launches[k] == 0:
+            raise AssertionError(f"viewer: the renders never launched {k}")
+
+
 # The parent tree's entry points and their argument types, as its
 # accel/cuda_build.py has them at commit 11d34d2: B1 took the [9, T]
 # table, B2-B5 take what this tree's take.
@@ -2995,6 +3264,12 @@ def parent_library(parent: Path) -> ctypes.CDLL:
     for name, argtypes in PARENT_ENTRY_POINTS.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _I
+    # entry points added since that commit take this tree's arguments,
+    # where the parent has them
+    for name, argtypes in cuda_build.ENTRY_POINTS.items():
+        if name not in PARENT_ENTRY_POINTS and hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = _I
     return lib
 
 
@@ -3195,6 +3470,25 @@ def phase_parent_ab(dev, parent: Path) -> dict:
                     acc.update(parent_ms=t_old, ms=t_new)
                 print(f"[parent-ab] B5 (A/A) {kname} {name} {size}^2 segment "
                       f"{i}: parent {t_old:.4f} ms, this tree {t_new:.4f} ms")
+    # B6 (A/A) where the parent's library has it; older parents do not
+    if hasattr(lib, "packet_steps"):
+        from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+        from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
+            make_inputs
+        table, o, d = make_inputs(B6_ROWS, B6_TILES, dev)
+
+        def b6():
+            return pk.packet_steps(table, o, d, B6_STEPS)
+
+        if _bits_differ(aa(b6)(), b6()):
+            raise AssertionError("B6: this tree differs from the parent")
+        t_old, t_new = in_turns(aa(b6), b6)
+        out["packet_steps"] = {"parent_ms": t_old, "ms": t_new}
+        print(f"[parent-ab] B6 (A/A): parent {t_old:.4f} ms, this tree "
+              f"{t_new:.4f} ms (in turns, medians of {TIMING_REPS})")
+    else:
+        print("[parent-ab] B6: the parent's library has no packet_steps; "
+              "not compared")
     for k, v in out.items():
         print(f"[parent-ab] {k}: {json.dumps(v)}")
     return out
@@ -3220,6 +3514,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     kernels = timed("kernels", phase_kernels, dev)
+    kernels["packet_steps"], b6_launches = timed("b6", phase_b6, dev)
     if args.parent is not None:
         ab = timed("parent-ab", phase_parent_ab, dev, args.parent)
         for k, v in ab.items():
@@ -3227,6 +3522,7 @@ def main() -> int:
     phase_goldens(dev)
     launches = {k: 0 for k in KERNELS}
     launches.update(phase_main(dev))
+    launches["packet_steps"] = b6_launches
     phase_ppm_goldens(dev)
     phase_ppm_parity(dev)
     for k, c in phase_ppm_main(dev).items():
@@ -3268,6 +3564,8 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     for k, c in timed("ranks", phase_ranks, dev).items():
         launches[k] += c
+    timed("tooling", phase_tooling, dev)
+    timed("viewer", phase_viewer, dev)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k], **kernels[k]}

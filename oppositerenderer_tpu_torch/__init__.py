@@ -10,7 +10,11 @@ host-built kd-tree) and VCM with vertex merging, on the Cornell scenes
 (dense intersector), the BVH scenes and Collada/OBJ files, gradients
 with respect to material and emission parameters (``diff``), and their
 distribution over ``torch.distributed`` (``parallel``: tile-sharded
-steps, iteration-sharded processes); ``ROADMAP.md`` lists what follows.
+steps, iteration-sharded processes). The tools are ported too: profiling
+(``core.profiling``), the device table (``devices``), ``debug``, the
+interactive camera and the live viewer (``viewer``, the CLI's
+``--serve``), and the packet node-step microbenchmark
+(``scripts.packet_kernel_exp``).
 """
 from .camera import Camera
 from .config import Intersector, RenderConfig, RenderMethod

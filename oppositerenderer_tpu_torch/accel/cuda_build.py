@@ -7,8 +7,8 @@ the package, and loaded with ctypes. The library's
 name carries a key that hashes the flags and every source, so an edit to
 any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
 without it raises. The wrappers (``intersect_kernels``,
-``gather_kernels``, ``vm_kernels``, ``bvh_kernels``) take their entry
-points from :func:`library`.
+``gather_kernels``, ``vm_kernels``, ``bvh_kernels``,
+``packet_exp_kernels``) take their entry points from :func:`library`.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("intersect.cu", "gather.cu", "vm.cu",
-                                 "bvh.cu"))
+                             "bvh.cu", "packet_exp.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels round as the
 # plain versions do (the intersection kernels agree with theirs bit for bit)
@@ -42,6 +42,7 @@ ENTRY_POINTS = {
     "bvh_closest": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 6,
     "bvh_any": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 2,
     "bvh_compact_live": [_PTR] * 2 + [_I32] + [_PTR] * 3,
+    "packet_steps": [_PTR, _I32, _PTR, _PTR, _I32, _I32, _PTR, _PTR],
 }
 
 

@@ -141,10 +141,22 @@ class Camera:
         return px, py, inside, d
 
     # ----------------------------------------------------- interactive ops
-    def _remake(self, eye, lookat) -> "Camera":
-        return Camera.make(eye.cpu().numpy(), lookat.cpu().numpy(),
-                           self.up.cpu().numpy(), self.hfov, self.vfov,
+    def _remake(self, eye, lookat, hfov: float | None = None,
+                vfov: float | None = None) -> "Camera":
+        def host(a):
+            return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+        return Camera.make(host(eye), host(lookat), host(self.up),
+                           self.hfov if hfov is None else hfov,
+                           self.vfov if vfov is None else vfov,
                            float(self.aperture), device=self.eye.device)
+
+    def scale_fov(self, scale: float) -> "Camera":
+        """Camera::scaleFOV (Camera.cpp:347-360)."""
+        def scaled(fov):
+            return min(max(pymath.degrees(2 * pymath.atan(
+                scale * pymath.tan(pymath.radians(fov * 0.5)))), 0.0), 120.0)
+        return self._remake(self.eye, self.lookat, scaled(self.hfov),
+                            scaled(self.vfov))
 
     def translate(self, x: float, y: float) -> "Camera":
         """Camera::translate: pan in the image plane (Camera.cpp:362-368)."""
@@ -154,3 +166,33 @@ class Camera:
     def dolly(self, scale: float) -> "Camera":
         """Camera::dolly (Camera.cpp:374-382)."""
         return self._remake(self.eye + self.lookdir * scale, self.lookat)
+
+    def orbit(self, dtheta: float, dphi: float) -> "Camera":
+        """Rotate the eye around the lookat point: the Mouse 'rotate'
+        interaction (util/Mouse.cpp:316-380). ``dtheta`` spins about the up
+        axis, ``dphi`` tilts toward or away from it (radians); the polar
+        angle is clamped away from the poles so the frame stays defined.
+        In float64 on the host, as the JAX package computes it."""
+        eye = self.eye.cpu().numpy().astype(np.float64)
+        at = self.lookat.cpu().numpy().astype(np.float64)
+        up = self.up.cpu().numpy().astype(np.float64)
+        rel = eye - at
+        r = float(np.linalg.norm(rel))
+        # spherical coordinates about `up`
+        y = float(rel @ up)
+        planar = rel - y * up
+        p = float(np.linalg.norm(planar))
+        if p < 1e-9 * max(r, 1e-9):
+            e1 = np.array([1.0, 0.0, 0.0])
+            e1 -= (e1 @ up) * up
+            planar = e1 / np.linalg.norm(e1) * 1e-6
+            p = float(np.linalg.norm(planar))
+        u_hat = planar / p
+        w_hat = np.cross(up, u_hat)
+        theta = pymath.atan2(float(rel @ w_hat), p) + dtheta
+        phi = min(max(pymath.atan2(y, p) + dphi, -1.55), 1.55)
+        new_rel = r * (pymath.cos(phi)
+                       * (pymath.cos(theta) * u_hat
+                          + pymath.sin(theta) * w_hat)
+                       + pymath.sin(phi) * up)
+        return self._remake(at + new_rel, at)

@@ -2,20 +2,22 @@
 
 The counterpart of ``oppositerenderer_tpu/cli.py`` with its flags: pick a
 scene, render iterations, write a preview every few iterations, print a
-stats line per iteration, checkpoint and resume. The port renders path
-tracing, progressive photon mapping and VCM (``--vm`` adds vertex
-merging); ``--serve`` (the live viewer) exits with an error until its
-slice arrives. There is no ``--pallas``: the device decides whether the
-CUDA kernels run.
+stats line per iteration, checkpoint and resume, or serve the live
+viewer (``--serve``). The port renders path tracing, progressive photon
+mapping and VCM (``--vm`` adds vertex merging). There is no
+``--pallas``: the device decides whether the CUDA kernels run.
+``--list-devices`` prints the compute-device table (the CUDA cards, then
+the CPU) and ``--device N`` renders on its row N; ``--cpu`` is the CPU.
 
 Usage:
   python -m oppositerenderer_tpu_torch.cli --scene CornellSmall --method vcm \
       --size 512 --iterations 64 --output out.png
+  python -m oppositerenderer_tpu_torch.cli --cpu --method pt --size 64 \
+      --serve 8000
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import sys
 import time
 from pathlib import Path
@@ -58,11 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (plain PyTorch, no kernels)")
     p.add_argument("--device", type=int, default=None,
-                   help="render on this CUDA device ordinal (default: 0)")
+                   help="render on the device of this row of "
+                        "--list-devices (default: the first CUDA card)")
     p.add_argument("--list-devices", action="store_true",
                    help="print the compute-device table and exit")
     p.add_argument("--profile", default=None, metavar="LOGDIR",
-                   help="write a torch.profiler chrome trace of the render "
+                   help="write a torch.profiler Chrome trace of the render "
                         "loop to LOGDIR/trace.json")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve a live progressive viewer on this port")
@@ -82,25 +85,30 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.serve is not None:
-        p.error("--serve (the live viewer) is not yet ported to PyTorch")
+    from .devices import ComputeDeviceRepository
     if args.list_devices:
-        for i in range(torch.cuda.device_count()):
-            prop = torch.cuda.get_device_properties(i)
-            print(f"{i}: {prop.name}, {prop.total_memory / 2**30:.1f} GiB, "
-                  f"{prop.multi_processor_count} SMs")
+        print(ComputeDeviceRepository.enumerate().table())
         return 0
 
     from .camera import Camera
     from .config import RenderConfig, RenderMethod
+    from .core.profiling import trace
     from .film import save_png, save_tga
     from .renderer import Renderer
     from .scene import get_scene_by_name
 
     if args.cpu:
         device = torch.device("cpu")
+    elif args.device is not None:
+        repo = ComputeDeviceRepository.enumerate()
+        try:
+            device = repo.pick(args.device)
+        except ValueError as e:
+            p.error(str(e))
+        if not args.quiet:
+            print(f"rendering on {repo.devices[args.device].summary()}")
     elif torch.cuda.is_available():
-        device = torch.device("cuda", args.device or 0)
+        device = torch.device("cuda", 0)
     else:
         p.error("no CUDA device: pass --cpu to render with plain PyTorch")
 
@@ -132,6 +140,13 @@ def main(argv=None) -> int:
     if args.pan:
         camera = camera.translate(*args.pan)
 
+    if args.serve is not None:
+        from .viewer import serve
+        serve(scene, camera, cfg, port=args.serve, seed=args.seed,
+              preview_every=max(1, args.preview_every),
+              ppm_initial_radius=args.ppm_radius)
+        return 0
+
     r = Renderer(scene, camera, cfg, seed=args.seed,
                  ppm_initial_radius=args.ppm_radius)
     if args.resume and args.checkpoint and Path(args.checkpoint).exists():
@@ -142,9 +157,7 @@ def main(argv=None) -> int:
 
     save = save_tga if args.output.endswith(".tga") else save_png
     target = r.iteration + args.iterations
-    with contextlib.ExitStack() as stack:
-        if args.profile:
-            prof = stack.enter_context(torch.profiler.profile())
+    with trace(args.profile):
         while r.iteration < target:
             m = r.render_next_iteration()
             if not args.quiet:
@@ -156,9 +169,6 @@ def main(argv=None) -> int:
                       f"{m['iteration_seconds'] * 1e3:7.1f} ms{extra}")
             if args.preview_every and r.iteration % args.preview_every == 0:
                 save(r.film, args.output, gamma=args.gamma)
-    if args.profile:
-        Path(args.profile).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.profile) / "trace.json"))
 
     save(r.film, args.output, gamma=args.gamma)
     if args.checkpoint:

@@ -46,6 +46,7 @@ from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import PhotonMapStructure, RenderConfig
 from ..core.math import Tensor, dot, luminance
+from ..core.profiling import pass_scope
 from ..core.rng import Key, LaneSampler, fold_in, iteration_key
 from ..core.sampling import (sample_cone, sample_disc, sample_unit_sphere,
                              sample_unit_hemisphere_cos)
@@ -440,13 +441,13 @@ def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
     W, H = cfg.width, cfg.height
     n = W * H
     dev = radius.device
-    with torch.profiler.record_function("ppm_grid_build"):
-        grid = build_photon_grid(
+    with pass_scope("ppm_grid_build") as out:
+        grid = out(build_photon_grid(
             photons, cfg.photon_grid_resolution,
-            min_cell_size=min_cell_size_for_window(radius, 4))
+            min_cell_size=min_cell_size_for_window(radius, 4)))
     s_gather = LaneSampler(fold_in(est_key, 55), pixel_lanes,
                            cheap=cfg.use_cheap_random)
-    with torch.profiler.record_function("ppm_indirect_gather"):
+    with pass_scope("ppm_indirect_gather") as out:
         if W % 16 == 0 and H % 16 == 0:
             perm, inv = (torch.as_tensor(a, dtype=torch.int64, device=dev)
                          for a in tile_block_order(W, H))
@@ -454,11 +455,11 @@ def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
             acc_b, stats = gather_photons_tiled(
                 grid, hp.position[perm], hp.ns[perm], radius,
                 u_rows=u_rows, valid=hp.found[perm])
-            return acc_b[inv], stats
-        return gather_photons(
+            return out((acc_b[inv], stats))
+        return out(gather_photons(
             grid, hp.position, hp.ns, radius, max_cells_per_axis=4,
             budget_total=cfg.gather_photon_budget,
-            u_stride=s_gather.next1())
+            u_stride=s_gather.next1()))
 
 
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -483,42 +484,42 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     px, py = pixel_coords(W, H, dev)
     pixel_lanes = torch.arange(n, dtype=torch.int64, device=dev)
-    with torch.profiler.record_function("ppm_eye_pass"):
-        hp = trace_eye_pass(scene, camera, cfg, eye_key, eps, px, py,
-                            pixel_lanes)
+    with pass_scope("ppm_eye_pass") as out:
+        hp = out(trace_eye_pass(scene, camera, cfg, eye_key, eps, px, py,
+                                pixel_lanes))
 
     photon_lanes = torch.arange(cfg.photons_per_iteration,
                                 dtype=torch.int64, device=dev)
-    with torch.profiler.record_function("ppm_photon_pass"):
-        photons, vol_photons, photon_stats = trace_photon_pass(
-            scene, cfg, photon_key, eps, photon_lanes)
+    with pass_scope("ppm_photon_pass") as out:
+        photons, vol_photons, photon_stats = out(trace_photon_pass(
+            scene, cfg, photon_key, eps, photon_lanes))
 
     structure = cfg.photon_map_structure
     if structure == PhotonMapStructure.SORTED_UNIFORM_GRID:
         accum_power, gather_stats = grid_gather(cfg, hp, photons, radius,
                                                 est_key, pixel_lanes)
     elif structure == PhotonMapStructure.KD_TREE_CPU:
-        with torch.profiler.record_function("ppm_kdtree_build"):
-            tree = build_photon_kdtree(photons)
-        with torch.profiler.record_function("ppm_indirect_gather"):
-            accum_power, gather_stats = gather_kdtree(tree, hp.position,
-                                                      hp.ns, radius)
+        with pass_scope("ppm_kdtree_build") as out:
+            tree = out(build_photon_kdtree(photons))
+        with pass_scope("ppm_indirect_gather") as out:
+            accum_power, gather_stats = out(gather_kdtree(
+                tree, hp.position, hp.ns, radius))
     else:
-        with torch.profiler.record_function("ppm_hash_build"):
-            table = build_stochastic_hash(photons, radius,
-                                          cfg.stochastic_hash_size_log2,
-                                          fold_in(photon_key, 77))
-        with torch.profiler.record_function("ppm_indirect_gather"):
-            accum_power, gather_stats = gather_stochastic_hash(
-                table, hp.position, hp.ns, radius)
+        with pass_scope("ppm_hash_build") as out:
+            table = out(build_stochastic_hash(
+                photons, radius, cfg.stochastic_hash_size_log2,
+                fold_in(photon_key, 77)))
+        with pass_scope("ppm_indirect_gather") as out:
+            accum_power, gather_stats = out(gather_stochastic_hash(
+                table, hp.position, hp.ns, radius))
 
     radiance = shade(scene, cfg, hp, accum_power, radius_sq, est_key,
                      pixel_lanes, eps)
     if scene.medium is not None:
-        with torch.profiler.record_function("ppm_volume_gather"):
-            radiance = radiance + _volumetric(scene.medium, cfg, hp,
-                                              vol_photons, radius, est_key,
-                                              pixel_lanes)
+        with pass_scope("ppm_volume_gather") as out:
+            radiance = radiance + out(_volumetric(
+                scene.medium, cfg, hp, vol_photons, radius, est_key,
+                pixel_lanes))
     radiance = radiance.reshape(H, W, 3)
     stats = dict(**photon_stats,
                  **{k: torch.sum(v) for k, v in gather_stats.items()})
@@ -542,10 +543,10 @@ def shade(scene: Scene, cfg: RenderConfig, hp: HitpointBuffer,
     hp_bsdf = BSDF.make(hp.ns, hp.ng, hp.wo, hp.kd, ks_l, exp_l, kr_l,
                         kt_l, ior_l, diel_l)
     s_est = LaneSampler(est_key, pixel_lanes, cheap=cfg.use_cheap_random)
-    with torch.profiler.record_function("ppm_direct_estimation"):
-        direct = nee_direct(scene, hp_bsdf, hp.position, hp.found, s_est,
-                            cfg.ppm_direct_shadow_samples, eps,
-                            reference_faithful=cfg.reference_faithful)
+    with pass_scope("ppm_direct_estimation") as out:
+        direct = out(nee_direct(scene, hp_bsdf, hp.position, hp.found, s_est,
+                                cfg.ppm_direct_shadow_samples, eps,
+                                reference_faithful=cfg.reference_faithful))
     direct = torch.where(hp.found[:, None], hp.attenuation * direct, 0.0)
     # emitter/specular/miss pixels pass their stored radiance through; the
     # reference clamps it to <= 1 (DirectRadianceEstimation.cu:38), only

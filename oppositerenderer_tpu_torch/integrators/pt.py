@@ -20,6 +20,7 @@ from ..accel.intersect import intersect
 from ..camera import Camera
 from ..config import RenderConfig
 from ..core.math import Tensor, max3
+from ..core.profiling import pass_scope
 from ..core.rng import Key, LaneSampler, fold_in, iteration_key, \
     lane_key_words
 from ..scene.types import Scene
@@ -113,7 +114,7 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
     device = scene.device
     px, py = pixel_coords(W, H, device)
     lane_ids = torch.arange(W * H, dtype=torch.int64, device=device)
-    with torch.profiler.record_function("pt_raytrace_pass"):
-        radiance = render_lanes(scene, camera, cfg, iteration, base_key,
-                                px, py, lane_ids)
+    with pass_scope("pt_raytrace_pass") as out:
+        radiance = out(render_lanes(scene, camera, cfg, iteration, base_key,
+                                    px, py, lane_ids))
     return radiance.reshape(H, W, 3)

@@ -39,6 +39,7 @@ from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import RenderConfig
 from ..core.math import Frame, Tensor, dot, length, max3
+from ..core.profiling import pass_scope
 from ..core.rng import Key, LaneSampler, fold_in, iteration_key
 from ..core.sampling import cos_hemisphere_pdf_w, pdf_w_to_a
 from ..lights import light_emit, light_illuminate
@@ -590,11 +591,11 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         # vertex merging (tech report sec. 5; SmallVCM merge)
         if cfg.vcm_use_vm:
             u_merge = skey.next1()
-            with torch.profiler.record_function("vcm_merge"):
-                color = color + _merge_vertices(
+            with pass_scope("vcm_merge") as out:
+                color = color + out(_merge_vertices(
                     scene, cfg, bsdf, hit.position, throughput, dVCM, dVM,
                     connectable, vgrid, radius_sq, mis_vc_w, n_light_paths,
-                    u_merge, depth1, mesh=mesh)
+                    u_merge, depth1, mesh=mesh))
 
         # terminate if the path is too long, else scatter
         can_continue = live2 & (depth1 < cfg.vcm_max_path_length)
@@ -701,21 +702,21 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     n = cfg.width * cfg.height
     path_lanes = torch.arange(n_light_paths, dtype=torch.int64, device=dev)
-    with torch.profiler.record_function("vcm_light_pass"):
-        store, splat, lstats = trace_light_pass(
+    with pass_scope("vcm_light_pass") as out:
+        store, splat, lstats = out(trace_light_pass(
             scene, camera, cfg, lkey, eps, mis_vc_w, mis_vm_w, path_lanes,
-            n_light_paths)
+            n_light_paths))
     vgrid = None
     if cfg.vcm_use_vm:
-        with torch.profiler.record_function("vcm_vertex_grid"):
-            vgrid = build_vertex_grid(scene, cfg, store,
-                                      torch.sqrt(radius_sq))
+        with pass_scope("vcm_vertex_grid") as out:
+            vgrid = out(build_vertex_grid(scene, cfg, store,
+                                          torch.sqrt(radius_sq)))
     px, py = pixel_coords(cfg.width, cfg.height, dev)
     pixel_lanes = torch.arange(n, dtype=torch.int64, device=dev)
     pair = pixel_lanes % n_light_paths
-    with torch.profiler.record_function("vcm_camera_pass"):
-        color = trace_camera_pass(
+    with pass_scope("vcm_camera_pass") as out:
+        color = out(trace_camera_pass(
             scene, camera, cfg, ckey, eps, mis_vc_w, mis_vm_w, store,
             n_light_paths, px, py, pixel_lanes, pair, vgrid=vgrid,
-            radius_sq=radius_sq)
+            radius_sq=radius_sq))
     return color.reshape(cfg.height, cfg.width, 3) + splat, lstats

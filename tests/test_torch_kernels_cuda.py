@@ -9,7 +9,8 @@ Run them on such a machine with
 not need.)
 The library is built with --fmad=false, so the intersection kernels (B1,
 B2) and the BVH traversal (B5) and their plain versions must agree bit
-for bit, B1, B2 and B5 also on inputs whose lanes are all dead or all
+for bit, as the packet node-step microbenchmark (B6) must, B1, B2 and B5
+also on inputs whose lanes are all dead or all
 live, B1 on equal t too (the lower index wins),
 and B5's live-lane compaction must find the lanes torch.nonzero finds.
 The gather kernel (B3) and the vertex-merge kernel (B4) sum the same terms
@@ -655,3 +656,20 @@ def test_sharded_step_over_a_gloo_rank_on_the_card(cuda, name):
     else:
         torch.testing.assert_close(band, want, rtol=1e-5,
                                    atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("steps,tiles,rows", [(64, 64, 48 * 1024),
+                                              (16, 528, 48 * 1024),
+                                              (9, 3, 97)])
+def test_packet_steps_kernel_equals_plain_version(cuda, steps, tiles, rows):
+    from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+    from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
+        make_inputs
+    table, o, d = make_inputs(rows, tiles, cuda)
+    d[0, 0, 0, :] = -1e-13          # clamped to +1e-12 by both
+    before = pk.packet_steps.launches
+    got = pk.packet_steps(table, o, d, steps)
+    torch.cuda.synchronize()
+    assert pk.packet_steps.launches == before + 1
+    want = pk.plain_packet_steps(table, o, d, steps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

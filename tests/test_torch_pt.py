@@ -191,6 +191,7 @@ def test_cli_renders_checkpoints_and_resumes(tmp_path, capsys):
     assert cli.main(["--cpu", "--method", "pt", "--size", "8", "-n", "1",
                      "-q", "-o", str(tmp_path / "y.tga")]) == 0
     assert (tmp_path / "y.tga").stat().st_size == 18 + 8 * 8 * 3
+    # a device ordinal past the device table is refused
     with pytest.raises(SystemExit) as e:
-        cli.main(["--serve", "8000"])
+        cli.main(["--device", "99", "-n", "1"])
     assert e.value.code == 2
