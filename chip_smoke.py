@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
 
 or, to time the parent tree's kernels in turns with this one's (phase
 parent-ab), with that tree's kernel sources unpacked under a directory
-(``git archive 11d34d2 oppositerenderer_tpu_torch/csrc``; the parent's
+(``git archive a2a280b oppositerenderer_tpu_torch/csrc``; the parent's
 entry points are PARENT_ENTRY_POINTS):
 
     python3 chip_smoke.py --parent _chip_tree/parent
@@ -62,21 +62,24 @@ and the script exits non-zero without printing the result line:
                  floats the traversal needs, from the plain version's
                  counts). With ``--parent``: phase parent-ab, the parent
                  tree's kernels built by the same nvcc flags and timed in
-                 turns with this tree's, their outputs compared: B1 on
-                 every closest-hit call of one PPM and one VCM iteration
-                 and on the 4096-triangle soup; B2-B5, which the parent
-                 shares, as an A/A check (this tree's wrappers launching
-                 the parent's library: B2 over one VCM iteration, B3 at
-                 the PPM main shape, B4 and B5 on every call of their
-                 iterations).
-3a. b6         - the packet node-step microbenchmark's kernel (B6) against
-                 its plain version bit for bit at the defaults (64 tiles,
-                 64 steps, 49,152 rows) and at 528 tiles (4 for each SM),
-                 each timed (kernel and plain) with its bound (8 slab tests
-                 of 24 FP32 operations a ray and step); then the
+                 turns with this tree's through this tree's wrappers, their
+                 outputs compared: B6 (redesigned since) at 64 and 528
+                 tiles, bit for bit; B1-B5, which the parent shares, as an
+                 A/A check (B1 on every closest-hit call of one PPM and one
+                 VCM iteration and on the 4096-triangle soup, B2 over one
+                 VCM iteration, B3 at the PPM main shape, B4 and B5 on
+                 every call of their iterations).
+3a. b6         - the packet node-step microbenchmark's kernel (B6) in each
+                 of its nine variants against its plain version bit for
+                 bit at the defaults (64 tiles, 64 steps, 49,152 rows) and
+                 at 528 tiles (4 for each SM), each timed (kernel and
+                 plain) with its bound (8 slab tests of 24 FP32 operations
+                 a ray and step), with the CTAs a tile (2 when twice the
+                 tiles fit the SMs) printed and checked; then the
                  microbenchmark's entry point (``python -m
                  oppositerenderer_tpu_torch.scripts.packet_kernel_exp``'s
-                 main) at its defaults: its two lines, 1 + 5 launches.
+                 main) at its defaults once per variant: its two lines,
+                 (1 + 5) x 9 launches.
 4. goldens     - the port's Renderer at the golden PT configuration on the
                  eight Cornell scenes against ``tests/goldens/goldens.npz``.
 5. main        - PT on CornellSmall at 512x512 with the default RenderConfig,
@@ -365,10 +368,14 @@ HISTOGRAM_MAX_MOVED = 1e-3
 VIEWER_ITERS = 4
 VIEWER_TIMEOUT_S = 300
 
-# the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM
-# bytes/s and FP32 operations/s outside the tensor cores
+# the card's peaks at the 700 W limit: HBM bytes/s (NVIDIA H100 SXM data
+# sheet) and FP32 instructions/s outside the tensor cores. The data
+# sheet's 67e12 counts a fused multiply-add as two operations; the kernels
+# are built with --fmad=false and every operation counted below is one
+# instruction, so the rate is one per lane and cycle: 128 lanes x 132 SMs
+# x 1.98 GHz = 33.5e12
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
+PEAK_FP32_PER_S = 33.5e12
 # FP32 operations counted per unit of work for the bounds: one
 # Moller-Trumbore test (9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 arithmetic
 # operations, comparisons not counted); one child's slab test (6 sub, 6
@@ -551,7 +558,8 @@ def pt_rays_per_iteration(cfg) -> int:
 
 def bound(n_bytes: float, flops: float) -> dict:
     """The least time the card could take for the work: the larger of the
-    bytes over the HBM rate and the FP32 operations over the FP32 peak."""
+    bytes over the HBM rate and the FP32 operations over the FP32
+    instruction rate."""
     ms_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     ms_ops = flops / PEAK_FP32_PER_S * 1e3
     return {"bound_ms": max(ms_bytes, ms_ops),
@@ -3005,65 +3013,90 @@ def phase_ranks(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # the packet node-step microbenchmark (B6)
-def b6_bound(steps: int, tiles: int) -> dict:
-    """B6's least time: 8 slab tests of SLAB_FLOPS operations a ray and
-    step; the bytes are the rows the steps read (48 floats each), the
-    rays' origins and directions, and best."""
-    flops = tiles * 1024 * steps * 8 * SLAB_FLOPS
-    n_bytes = (steps * tiles * 48 + 2 * tiles * 3 * 1024 + tiles * 1024) * 4
-    return bound(n_bytes, flops)
+def b6_bound(steps: int, tiles: int, variant: str = "scalar") -> dict:
+    """B6's least time in ``variant``: 8 slab tests of SLAB_FLOPS operations
+    a ray and step (dmaonly: one addition); the bytes are the rows the
+    steps read (48 floats each; fixedrow one a tile), the rays' origins
+    and directions (not read by dmaonly), and best."""
+    rays = tiles * 1024
+    if variant == "dmaonly":
+        return bound((steps * tiles * 48 + rays) * 4, rays * steps)
+    rows_read = tiles * (1 if variant == "fixedrow" else steps)
+    return bound((rows_read * 48 + 2 * 3 * rays + rays) * 4,
+                 rays * steps * 8 * SLAB_FLOPS)
 
 
 def phase_b6(dev) -> tuple[dict, int]:
-    """B6 against its plain version bit for bit at the microbenchmark's
-    defaults and at B6_WIDE_TILES tiles, each timed with its bound; then
-    the microbenchmark's entry point (``python -m
-    oppositerenderer_tpu_torch.scripts.packet_kernel_exp``'s main) at its
-    defaults, its two lines printed and its launches counted."""
+    """B6 in every variant against its plain version bit for bit at the
+    microbenchmark's defaults and at B6_WIDE_TILES tiles, each timed with
+    its bound, and the CTAs a tile checked against the rule (2 when twice
+    the tiles fit the SMs); then the microbenchmark's entry point
+    (``python -m oppositerenderer_tpu_torch.scripts.packet_kernel_exp``'s
+    main) at its defaults once per variant, its two lines printed and its
+    launches counted. Returns scalar's entry (the 528-tile one and the
+    other variants' under it) and the launches."""
     import io
 
     from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
     from oppositerenderer_tpu_torch.scripts import packet_kernel_exp as script
-    out = {"max_abs_err": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"max_abs_err": 0.0, "variants": {v: {} for v in pk.VARIANTS[1:]}}
     for tiles in (B6_TILES, B6_WIDE_TILES):
-        table, o, d = script.make_inputs(B6_ROWS, tiles, dev)
-        got = pk.packet_steps(table, o, d, B6_STEPS)
-        want = pk.plain_packet_steps(table, o, d, B6_STEPS)
-        bad = _bits_differ(got, want)
-        if bad:
-            raise AssertionError(f"packet_steps differs from its plain "
-                                 f"version at {tiles} tiles in {bad} rays")
-        entry = {"ms": cuda_ms(lambda: pk.packet_steps(table, o, d,
-                                                        B6_STEPS)),
-                 "plain_ms": cuda_ms(lambda: pk.plain_packet_steps(
-                     table, o, d, B6_STEPS), reps=3, warmup=1, batch=1,
-                     graph=False),
-                 **b6_bound(B6_STEPS, tiles),
-                 "hit_share": float((got < 1e30).float().mean())}
+        cluster = pk.cluster_size(tiles, dev)
+        if cluster != (2 if 2 * tiles <= sms else 1):
+            raise AssertionError(f"B6 at {tiles} tiles on {sms} SMs takes "
+                                 f"{cluster} CTAs a tile")
         print(f"[b6] {tiles} tiles x 1024 rays, {B6_STEPS} steps, "
-              f"{B6_ROWS} rows: equal to plain bit for bit (rays with a "
-              f"hit {entry['hit_share']:.4f}); ms kernel {entry['ms']:.4f}, "
-              f"plain {entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f} "
-              f"({entry['bound_by']})")
-        if tiles == B6_TILES:
-            out.update(entry)
-        else:
-            out[f"{tiles} tiles"] = entry
+              f"{B6_ROWS} rows, {sms} SMs: {cluster} CTA(s) a tile")
+        table, o, d = script.make_inputs(B6_ROWS, tiles, dev)
+        for v in pk.VARIANTS:
+            got = pk.packet_steps(table, o, d, B6_STEPS, v)
+            want = pk.plain_packet_steps(table, o, d, B6_STEPS, v)
+            bad = _bits_differ(got, want)
+            if bad:
+                raise AssertionError(f"packet_steps {v} differs from its "
+                                     f"plain version at {tiles} tiles in "
+                                     f"{bad} rays")
+            entry = {"ms": cuda_ms(lambda: pk.packet_steps(
+                         table, o, d, B6_STEPS, v)),
+                     "plain_ms": cuda_ms(lambda: pk.plain_packet_steps(
+                         table, o, d, B6_STEPS, v), reps=3, warmup=1,
+                         batch=1, graph=False),
+                     **b6_bound(B6_STEPS, tiles, v),
+                     "hit_share": float((got < 1e30).float().mean()),
+                     "ctas_per_tile": cluster}
+            if v == "scalar":
+                scalar_ms = entry["ms"]
+                if tiles == B6_TILES:
+                    out.update(entry)
+                else:
+                    out[f"{tiles} tiles"] = entry
+            else:
+                entry["of_scalar"] = entry["ms"] / scalar_ms
+                out["variants"][v][f"{tiles} tiles"] = entry
+            print(f"[b6] {tiles} tiles {v}: equal to plain bit for bit "
+                  f"(rays with a hit {entry['hit_share']:.4f}); ms kernel "
+                  f"{entry['ms']:.4f} ({entry['ms'] / scalar_ms:.3f} of "
+                  f"scalar), plain {entry['plain_ms']:.4f}, bound "
+                  f"{entry['bound_ms']:.4f} ({entry['bound_by']})")
     pk.packet_steps.launches = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        script.main(["--reps", str(B6_SCRIPT_REPS)])
-    launches = pk.packet_steps.launches
-    lines = buf.getvalue().splitlines()
-    for line in lines:
-        print(f"[b6] packet_kernel_exp: {line}")
     want_head = (f"device={torch.cuda.get_device_name(dev)} G={B6_TILES} "
                  f"STEPS={B6_STEPS} R={B6_ROWS}")
-    if len(lines) != 2 or lines[0] != want_head:
-        raise AssertionError(f"packet_kernel_exp printed {lines}")
-    if launches != 1 + B6_SCRIPT_REPS:
+    for v in pk.VARIANTS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            script.main(["--reps", str(B6_SCRIPT_REPS), "--variant", v])
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"[b6] packet_kernel_exp --variant {v}: {line}")
+        if len(lines) != 2 or lines[0] != want_head:
+            raise AssertionError(f"packet_kernel_exp --variant {v} printed "
+                                 f"{lines}")
+    launches = pk.packet_steps.launches
+    if launches != (1 + B6_SCRIPT_REPS) * len(pk.VARIANTS):
         raise AssertionError(f"packet_kernel_exp launched B6 {launches} "
-                             f"times, not {1 + B6_SCRIPT_REPS}")
+                             f"times, not (1 + {B6_SCRIPT_REPS}) x "
+                             f"{len(pk.VARIANTS)}")
     return out, launches
 
 
@@ -3234,8 +3267,8 @@ def phase_viewer(dev) -> None:
 
 
 # The parent tree's entry points and their argument types, as its
-# accel/cuda_build.py has them at commit 11d34d2: B1 took the [9, T]
-# table, B2-B5 take what this tree's take.
+# accel/cuda_build.py has them at commit a2a280b: this tree's, without
+# packet_steps_variant and packet_steps_cluster.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_ENTRY_POINTS = {
     "closest_hit_tris": [_P] * 5 + [_I, _I] + [_P] * 5,
@@ -3245,6 +3278,7 @@ PARENT_ENTRY_POINTS = {
     "bvh_closest": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 6,
     "bvh_any": [_P] + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 2,
     "bvh_compact_live": [_P] * 2 + [_I] + [_P] * 3,
+    "packet_steps": [_P, _I, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -3295,64 +3329,53 @@ def in_turns(old, new, graph: bool = True) -> tuple[float, float]:
 
 
 def parent_b1(lib, calls, label: str) -> dict:
-    """The parent's B1 (on the [9, T] rows of each call's records) and
-    this tree's in turns on each of ``calls``, outputs bit for bit;
-    returns the sums and each call's times."""
+    """The parent's B1 and this tree's, both through this tree's wrapper,
+    in turns on each of ``calls``, outputs bit for bit (an A/A check: the
+    parent takes the same triangle records); returns the sums and each
+    call's times."""
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
     acc = {"calls": 0, "parent_iteration_ms": 0.0, "iteration_ms": 0.0,
            "per_call": []}
     for i, (o, d, tmin, tmax, tris) in enumerate(calls):
-        tri9 = tris[:, list(ik._TRI9_COLS)].T.contiguous()
-        n = o.shape[0]
-        res = (torch.empty(n, device=o.device),
-               torch.empty(n, dtype=torch.int32, device=o.device),
-               torch.empty(n, device=o.device), torch.empty(n, device=o.device))
-
-        def old():
-            rc = lib.closest_hit_tris(
-                o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                tri9.data_ptr(), n, tri9.shape[1],
-                *(a.data_ptr() for a in res),
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"the parent's closest_hit_tris failed: "
-                                   f"cudaError {rc}")
-
-        def new():
+        def new(o=o, d=d, tmin=tmin, tmax=tmax, tris=tris):
             return ik.closest_hit_tris(o, d, tmin, tmax, tris)
 
-        old()
-        bad = sum(_bits_differ(a, b) for a, b in zip(res, new()))
+        def old():
+            with kernels_of(lib):
+                return new()
+
+        bad = sum(_bits_differ(a, b) for a, b in zip(old(), new()))
         if bad:
             raise AssertionError(f"B1 {label} call {i}: this tree differs "
                                  f"from the parent in {bad} values")
         t_old, t_new = in_turns(old, new)
-        live = int((tmax > tmin).sum())
+        n, live = o.shape[0], int((tmax > tmin).sum())
         acc["calls"] += 1
         acc["parent_iteration_ms"] += t_old
         acc["iteration_ms"] += t_new
         acc["per_call"].append([n, live, t_old, t_new])
-        print(f"[parent-ab] B1 {label} call {i}: lanes {n}, live {live}; "
-              f"parent {t_old:.4f} ms, this tree {t_new:.4f} ms (in turns, "
-              f"medians of {TIMING_REPS}); equal bit for bit")
-    print(f"[parent-ab] B1 {label}: parent {acc['parent_iteration_ms']:.4f} "
-          f"ms, this tree {acc['iteration_ms']:.4f} ms over "
-          f"{acc['calls']} calls")
+        print(f"[parent-ab] B1 (A/A) {label} call {i}: lanes {n}, live "
+              f"{live}; parent {t_old:.4f} ms, this tree {t_new:.4f} ms (in "
+              f"turns, medians of {TIMING_REPS}); equal bit for bit")
+    print(f"[parent-ab] B1 (A/A) {label}: parent "
+          f"{acc['parent_iteration_ms']:.4f} ms, this tree "
+          f"{acc['iteration_ms']:.4f} ms over {acc['calls']} calls")
     return acc
 
 
 def phase_parent_ab(dev, parent: Path) -> dict:
     """This tree's kernels against the parent tree's, in one call on one
-    card, each timed in turns with its outputs compared: B1 (redesigned
-    since) on every closest-hit call of one CornellSmall 512^2 PPM and VCM
-    iteration and on the 4096-triangle soup, bit for bit; and, as an A/A
-    check of kernels the parent shares (the port's wrappers launching the
-    parent's library), B2 over one VCM iteration (bit for bit), B3 at the
-    PPM main shape (within GATHER_RTOL), B4 on every merge round of one
-    VCM+VM iteration (within VM_RTOL) and B5 on every call of one Atrium
-    512^2 and Conference 1024^2 PT iteration (bit for bit). Returns, per
-    kernel, the parent's and this tree's ms at the timed shapes and summed
-    over the iteration."""
+    card, each timed in turns with its outputs compared, the port's
+    wrappers launching the parent's library for the parent: B6 (redesigned
+    since) at the microbenchmark's defaults and at B6_WIDE_TILES tiles,
+    bit for bit; and, as an A/A check of kernels the parent shares, B1 on
+    every closest-hit call of one CornellSmall 512^2 PPM and VCM iteration
+    and on the 4096-triangle soup, B2 over one VCM iteration (bit for
+    bit), B3 at the PPM main shape (within GATHER_RTOL), B4 on every merge
+    round of one VCM+VM iteration (within VM_RTOL) and B5 on every call of
+    one Atrium 512^2 and Conference 1024^2 PT iteration (bit for bit).
+    Returns, per kernel, the parent's and this tree's ms at the timed
+    shapes and summed over the iteration."""
     from oppositerenderer_tpu_torch.accel import bvh_kernels as bk
     from oppositerenderer_tpu_torch.accel import gather_kernels as gk
     from oppositerenderer_tpu_torch.accel import intersect_kernels as ik
@@ -3470,25 +3493,30 @@ def phase_parent_ab(dev, parent: Path) -> dict:
                     acc.update(parent_ms=t_old, ms=t_new)
                 print(f"[parent-ab] B5 (A/A) {kname} {name} {size}^2 segment "
                       f"{i}: parent {t_old:.4f} ms, this tree {t_new:.4f} ms")
-    # B6 (A/A) where the parent's library has it; older parents do not
-    if hasattr(lib, "packet_steps"):
-        from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
-        from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
-            make_inputs
-        table, o, d = make_inputs(B6_ROWS, B6_TILES, dev)
+    # B6 (A/B): the parent's first design against the redesign
+    from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+    from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
+        make_inputs
+    acc = out["packet_steps"] = {}
+    for tiles in (B6_TILES, B6_WIDE_TILES):
+        table, o, d = make_inputs(B6_ROWS, tiles, dev)
 
-        def b6():
+        def b6(table=table, o=o, d=d):
             return pk.packet_steps(table, o, d, B6_STEPS)
 
         if _bits_differ(aa(b6)(), b6()):
-            raise AssertionError("B6: this tree differs from the parent")
+            raise AssertionError(f"B6 at {tiles} tiles: this tree differs "
+                                 "from the parent")
         t_old, t_new = in_turns(aa(b6), b6)
-        out["packet_steps"] = {"parent_ms": t_old, "ms": t_new}
-        print(f"[parent-ab] B6 (A/A): parent {t_old:.4f} ms, this tree "
-              f"{t_new:.4f} ms (in turns, medians of {TIMING_REPS})")
-    else:
-        print("[parent-ab] B6: the parent's library has no packet_steps; "
-              "not compared")
+        bnd = b6_bound(B6_STEPS, tiles)["bound_ms"]
+        if tiles == B6_TILES:
+            acc.update(parent_ms=t_old, ms=t_new)
+        else:
+            acc[f"{tiles} tiles"] = {"parent_ms": t_old, "ms": t_new}
+        print(f"[parent-ab] B6 (A/B) {tiles} tiles: parent (first design) "
+              f"{t_old:.4f} ms, this tree {t_new:.4f} ms "
+              f"({t_old / t_new:.2f}x), bound {bnd:.4f} ms (in turns, "
+              f"medians of {TIMING_REPS}); equal bit for bit")
     for k, v in out.items():
         print(f"[parent-ab] {k}: {json.dumps(v)}")
     return out

@@ -3,7 +3,7 @@ in turns with the kernels as built, on the main paths' inputs.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [--only {b1b2,b3,b6}]
 
 * B1 and B2 (``csrc/intersect.cu``): each variant is the source with a
   few text substitutions, built with the port's nvcc flags into
@@ -36,6 +36,25 @@ Run from the repository root on a machine with one CUDA card and nvcc:
   all 2^32 float32 bit patterns.
 * B3 (``csrc/gather.cu``): the same library launched with 2, 4, 16 and
   32 slot groups per tile, against the built 8, at the PPM main shape.
+* B6 (``csrc/packet_exp.cu``): the redesign's steps undone one at a time,
+  by text substitutions launched through the port's own wrapper, on
+  ``scalar`` at the microbenchmark's defaults (64 tiles) and at 528 tiles:
+  - ``b6_one_cta``: one CTA a tile at any tile count (no cluster);
+  - ``b6_cluster_sync``: a 2-CTA cluster's reduction as each warp's byte
+    written into both CTAs' shared memory (``map_shared_rank``) and one
+    ``cluster.sync()`` a step, in place of a block count and one
+    ``st.async`` message to the other CTA;
+  - ``b6_modulo``: the next node by an integer ``%`` in place of three
+    conditional subtractions; ``b6_all_track``: every thread computes the
+    node chain, not warp 0 alone; ``b6_plain_chain``: both;
+  - ``b6_mask_popc``: each ray's 8 hits packed into a mask and its
+    popcount's parity counted, in place of the count of hits;
+  - ``b6_spread``: a 2-CTA cluster's CTAs reserve 116 KB of shared memory
+    each, more than half an SM's, so that no two of them can share an SM;
+  - ``b6_minmax_as_add``: the slab test's 10 min/max a child as additions
+    and subtractions (the same count of FP32 instructions; its results
+    differ): timed on ``fixedrow``, the slab tests and the count alone, it
+    shows what min/max cost against additions.
 
 Prints one line per variant and shape: its ms and the built kernel's, in
 turns (built, variant, variant, built; device time, medians of 20 replays
@@ -45,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
+import argparse
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -90,6 +110,91 @@ VARIANTS = {
     "rcp_rn": [("1.0f / det", "__frcp_rn(det)")],
     "fast_div": [("1.0f / det", "__fdividef(1.0f, det)")],
 }
+# B6's slab test, and its tile reduction in a 2-CTA cluster as the
+# redesign had it first (each warp's byte into both CTAs, cluster.sync())
+_B6_SLAB = """  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+"""
+_B6_REDUCE = """template <int kCluster, Reduce kOp>
+__device__ __forceinline__ unsigned tile_reduce(unsigned v, uint8_t* slot,
+                                                Exchange& x, int k) {
+  const unsigned mine = block_reduce<kRays / kCluster, kOp>(v, slot);
+  if constexpr (kCluster == 1) {
+    return mine;
+  } else {
+    const unsigned other = x.swap(mine, k);
+    return kOp == Reduce::kParity ? (mine ^ other) : max(mine, other);
+  }
+}
+
+"""
+_B6_CLUSTER_SYNC = """template <int kCluster, Reduce kOp>
+__device__ __forceinline__ unsigned tile_reduce(unsigned v, uint8_t* slot,
+                                                Exchange& x, int k) {
+  if constexpr (kCluster == 1) {
+    return block_reduce<kRays, kOp>(v, slot);
+  } else {
+    const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+    const unsigned w = kOp == Reduce::kParity
+        ? static_cast<unsigned>(__popc(__ballot_sync(0xffffffffu, v))) & 1u
+        : __reduce_max_sync(0xffffffffu, v);
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    if (lane == 0) {
+      const unsigned i = rank * 16 + warp;
+      slot[i] = static_cast<uint8_t>(w);
+      *cluster.map_shared_rank(slot + i, rank ^ 1u) = static_cast<uint8_t>(w);
+    }
+    cluster.sync();
+    const uint4 a = reinterpret_cast<const uint4*>(slot)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(slot)[1];
+    if constexpr (kOp == Reduce::kParity) {
+      return static_cast<unsigned>(
+          __popc(a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w)) & 1u;
+    } else {
+      const unsigned m = __vmaxu4(__vmaxu4(__vmaxu4(a.x, a.y),
+                                           __vmaxu4(a.z, a.w)),
+                                  __vmaxu4(__vmaxu4(b.x, b.y),
+                                           __vmaxu4(b.z, b.w)));
+      return max(max(m & 255u, (m >> 8) & 255u),
+                 max((m >> 16) & 255u, m >> 24));
+    }
+  }
+}
+
+"""
+_B6_MODULO = ("""  const unsigned r = static_cast<unsigned>(rows);
+  unsigned x = 5u * static_cast<unsigned>(node) + 1u;
+  x = min(x, x - 4u * r);
+  x = min(x, x - 2u * r);
+  return static_cast<int>(min(x, x - r));
+""", "  return (5 * node + 1) % rows;\n")
+_B6_ALL_TRACK = ("const bool tracks = kVariant == kNoScalar || t < 32;",
+                 "const bool tracks = true;")
+B6_VARIANTS = {
+    "b6_one_cta": [("return 2 * tiles <= sms ? 2 : 1;", "return 1;")],
+    "b6_cluster_sync": [(_B6_REDUCE, _B6_CLUSTER_SYNC)],
+    "b6_modulo": [_B6_MODULO],
+    "b6_all_track": [_B6_ALL_TRACK],
+    "b6_plain_chain": [_B6_MODULO, _B6_ALL_TRACK],
+    "b6_mask_popc": [
+        ("      acc += h0 + h1;\n",
+         "      acc |= (h0 << (2 * p)) | (h1 << (2 * p + 1));\n"),
+        ("kMask ? hits : (hits & 1u)", "kMask ? hits : (__popc(hits) & 1u)")],
+    "b6_spread": [("  if constexpr (kCluster > 1) {\n    attr[0].id",
+                   "  if constexpr (kCluster > 1) {\n"
+                   "    const cudaError_t e = cudaFuncSetAttribute(kernel, "
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize, 116 << 10);\n"
+                   "    if (e != cudaSuccess) return e;\n"
+                   "    cfg.dynamicSmemBytes = 116 << 10;\n    attr[0].id")],
+    "b6_minmax_as_add": [(_B6_SLAB, """  const float tn = __fadd_rn(__fadd_rn(__fadd_rn(t0x, t1x),
+                                   __fadd_rn(t0y, t1y)), __fadd_rn(t0z, t1z));
+  const float tf = __fsub_rn(__fsub_rn(__fsub_rn(t0x, t1x),
+                                   __fsub_rn(t0y, t1y)), __fsub_rn(t0z, t1z));
+""")],
+}
 # variants that change only B1's code: not timed on B2
 B1_ONLY = {"two_rays", "two_rays_block128", "b1_min4", "b1_min8", "unroll4",
            "double_buffer", "chunk256"}
@@ -114,21 +219,30 @@ extern "C" int rcp_mismatches(unsigned long long* bad, cudaStream_t s) {
 """
 
 
-def build_variants() -> dict:
-    """Every variant's library and the reciprocal check's, built by the
-    port's nvcc flags, all at once."""
+def build_variants(only: str | None = None) -> dict:
+    """Every variant's library (B1/B2's and the reciprocal check's unless
+    ``only`` is "b6", B6's unless it is "b1b2"), built by the port's nvcc
+    flags, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
-    src = cuda_build.SOURCES[0].read_text()
+    groups = []
+    if only != "b6":
+        groups.append(("intersect.cu", VARIANTS))
+    if only != "b1b2":
+        groups.append(("packet_exp.cu", B6_VARIANTS))
     sources = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in the "
-                                   "source")
-            text = text.replace(old, new)
-        sources[name] = text
-    sources["rcp_check"] = RCP_CHECK
+    for file, variants in groups:
+        src = next(p for p in cuda_build.SOURCES
+                   if p.name == file).read_text()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                if old not in text:
+                    raise RuntimeError(f"variant {name}: {old!r} not in "
+                                       "the source")
+                text = text.replace(old, new)
+            sources[name] = text
+    if only != "b6":
+        sources["rcp_check"] = RCP_CHECK
     for name, text in sources.items():
         (OUT / f"{name}.cu").write_text(text)
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -138,16 +252,17 @@ def build_variants() -> dict:
     libs = {}
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line and name != "rcp_check":
+            if "registers" in line and name in VARIANTS:
                 print(f"[variants] {name} build: {line.strip()}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         if name == "rcp_check":
             lib.rcp_mismatches.argtypes = [ctypes.c_void_p] * 2
             lib.rcp_mismatches.restype = ctypes.c_int
         else:
-            for entry in ("closest_hit_tris", "occluded_tris"):
-                getattr(lib, entry).argtypes = cuda_build.ENTRY_POINTS[entry]
-                getattr(lib, entry).restype = ctypes.c_int
+            for entry, argtypes in cuda_build.ENTRY_POINTS.items():
+                if hasattr(lib, entry):
+                    getattr(lib, entry).argtypes = argtypes
+                    getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -169,13 +284,52 @@ def caller(fn, calls, lib=None):
     return run_lib
 
 
+def time_b6(dev, libs: dict) -> None:
+    """B6's variants in turns with the built kernel (``scalar``;
+    ``b6_minmax_as_add`` on ``fixedrow``) at 64 and 528 tiles."""
+    from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+    from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
+        make_inputs
+    for tiles in (cs.B6_TILES, cs.B6_WIDE_TILES):
+        table, o, d = make_inputs(cs.B6_ROWS, tiles, dev)
+        for name in B6_VARIANTS:
+            variant = "fixedrow" if name == "b6_minmax_as_add" else "scalar"
+            want = pk.plain_packet_steps(table, o, d, cs.B6_STEPS, variant)
+
+            def built(variant=variant):
+                return pk.packet_steps(table, o, d, cs.B6_STEPS, variant)
+
+            run = caller(built, [()], libs[name])
+            differ = cs._bits_differ(run()[0], want)
+            t_built, t_var = cs.in_turns(built, run)
+            print(f"[variants] B6 {variant} {tiles} tiles: built "
+                  f"{t_built:.4f} ms, {name} {t_var:.4f} ms "
+                  f"({t_var / t_built:.3f}x); rays differing from the plain "
+                  f"version: {differ}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("b1b2", "b3", "b6"),
+                    help="time one kernel's variants (default: all)")
+    only = ap.parse_args().only
     cs.phase_device()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_build()
-    libs = build_variants()
+    libs = build_variants(only) if only != "b3" else {}
+    if only in (None, "b1b2"):
+        time_b1b2(dev, libs)
+    if only in (None, "b3"):
+        time_b3(dev)
+    if only in (None, "b6"):
+        time_b6(dev, libs)
+    return 0
 
+
+def time_b1b2(dev, libs: dict) -> None:
+    """The reciprocal check, and B1's and B2's variants in turns with the
+    built kernels on their shapes."""
     bad = torch.zeros(1, dtype=torch.int64, device=dev)
     rc = libs["rcp_check"].rcp_mismatches(
         bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -219,6 +373,10 @@ def main() -> int:
                   f"({t_var / t_built:.3f}x); results differing from the "
                   f"plain version: {differ}")
 
+
+def time_b3(dev) -> None:
+    """The B3 library at other slot-group counts in turns with the built
+    8, at the PPM main shape."""
     grid, q, qn, r, u, valid = cs.ppm_gather_inputs(dev)
     starts, lens, weights, _, _, rows = gk._tile_tables(grid, q, r, u, valid)
     r2 = torch.square(torch.as_tensor(r, dtype=torch.float32, device=dev))
@@ -244,7 +402,6 @@ def main() -> int:
         print(f"[variants] B3 PPM main shape: {default} slot groups "
               f"{t_built:.4f} ms, {g} groups {t_var:.4f} ms; within "
               f"tolerance of the plain version: {ok}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types; every entry point returns cudaError_t
+# (packet_steps_cluster: a cluster size, or -cudaError_t)
 ENTRY_POINTS = {
     "closest_hit_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 5,
     "occluded_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 2,
@@ -43,6 +44,9 @@ ENTRY_POINTS = {
     "bvh_any": [_PTR] + [_I32] * 3 + [_PTR] * 4 + [_I32] + [_PTR] * 2,
     "bvh_compact_live": [_PTR] * 2 + [_I32] + [_PTR] * 3,
     "packet_steps": [_PTR, _I32, _PTR, _PTR, _I32, _I32, _PTR, _PTR],
+    "packet_steps_variant": [_PTR, _I32, _PTR, _PTR, _I32, _I32, _PTR, _I32,
+                             _PTR],
+    "packet_steps_cluster": [_I32],
 }
 
 

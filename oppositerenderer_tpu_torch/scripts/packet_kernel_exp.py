@@ -11,11 +11,31 @@ the median is printed as ns per node-step per tile and per ray-step.
 
 Usage:
   python -m oppositerenderer_tpu_torch.scripts.packet_kernel_exp \
-      [--steps 64] [--tiles 64] [--rows 49152] [--reps 5] [--cpu]
+      [--steps 64] [--tiles 64] [--rows 49152] [--reps 5] \
+      [--variant scalar] [--cpu]
 
 On the card it launches the CUDA kernel (``csrc/packet_exp.cu``); with
 ``--cpu`` it runs the plain PyTorch version. ``--variant`` takes the JAX
-script's choices, of which only ``scalar`` is ported.
+script's choices, the ablation of the step, each mapped onto Hopper:
+
+- ``scalar``: the row prefetched by ``cp.async`` a step ahead (both
+  candidate next rows), one tile-wide parity count a step.
+- ``vmem_smem``: the row staged at its own step by plain loads and a
+  barrier, no prefetch (the first design's staging).
+- ``hbm_vmem``: the row by a TMA bulk copy at its own step, waited.
+- ``hbm_smem``: the row by ``cp.async`` at its own step, waited. It is
+  ``vmem_smem``'s code with another copy instruction: on this card every
+  row comes from L2, so the TPU's memory spaces have no separate
+  counterparts.
+- ``noscalar``: no staging; every thread reads the row from global memory.
+- ``fixedrow``: the tile's first row staged once: the slab tests and the
+  count alone (the TPU variant leaves its row unwritten; this one defines
+  it).
+- ``dmaonly``: the row's load and one read a step, no slab test.
+- ``noreduce``: no count and no barrier (each warp prefetches its own row).
+- ``onereduce``: one tile-wide max of the rays' 8-bit hit masks a step.
+
+The first five give the same ``best``; the others their own.
 """
 from __future__ import annotations
 
@@ -27,11 +47,8 @@ import time
 import numpy as np
 import torch
 
-from ..accel.packet_exp_kernels import packet_steps
+from ..accel.packet_exp_kernels import VARIANTS, packet_steps
 from ..devices import resolve_device
-
-VARIANTS = ("scalar", "vmem_smem", "hbm_vmem", "hbm_smem", "fixedrow",
-            "dmaonly", "noreduce", "onereduce", "noscalar")
 
 
 def make_inputs(rows: int, tiles: int, device) -> tuple[torch.Tensor, ...]:
@@ -74,9 +91,6 @@ def timed_call(fn, device: torch.device) -> float:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.variant != "scalar":
-        ap.error(f"--variant {args.variant} is not ported: only the scalar "
-                 "variant is (ROADMAP.md queue B, B6, lists the others)")
     if args.reps < 1:
         ap.error("--reps must be >= 1")
     device = resolve_device("cpu" if args.cpu else None)
@@ -84,7 +98,7 @@ def main(argv=None) -> int:
     G, STEPS, R = args.tiles, args.steps, args.rows
 
     def run():
-        return packet_steps(table, o, d, STEPS)
+        return packet_steps(table, o, d, STEPS, args.variant)
 
     out = run()
     if not bool(torch.isfinite(out).all()):

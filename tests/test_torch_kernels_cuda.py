@@ -667,9 +667,27 @@ def test_packet_steps_kernel_equals_plain_version(cuda, steps, tiles, rows):
         make_inputs
     table, o, d = make_inputs(rows, tiles, cuda)
     d[0, 0, 0, :] = -1e-13          # clamped to +1e-12 by both
-    before = pk.packet_steps.launches
-    got = pk.packet_steps(table, o, d, steps)
-    torch.cuda.synchronize()
-    assert pk.packet_steps.launches == before + 1
-    want = pk.plain_packet_steps(table, o, d, steps)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for variant in pk.VARIANTS:
+        before = pk.packet_steps.launches
+        got = pk.packet_steps(table, o, d, steps, variant)
+        torch.cuda.synchronize()
+        assert pk.packet_steps.launches == before + 1
+        want = pk.plain_packet_steps(table, o, d, steps, variant)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            variant
+
+
+def test_packet_steps_cluster_rule_and_refusals(cuda):
+    from oppositerenderer_tpu_torch.accel import packet_exp_kernels as pk
+    from oppositerenderer_tpu_torch.scripts.packet_kernel_exp import \
+        make_inputs
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for tiles in (1, sms // 2, sms // 2 + 1, 528):
+        assert pk.cluster_size(tiles, cuda) == (2 if 2 * tiles <= sms else 1)
+    table, o, d = make_inputs(64, 2, cuda)
+    with pytest.raises(ValueError, match="unknown variant"):
+        pk.packet_steps(table, o, d, 1, "fixed_row")
+    shifted = torch.empty(64 * 128 + 1, device=cuda)[1:].view(64, 128)
+    shifted.copy_(table)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.packet_steps(shifted, o, d, 1)
