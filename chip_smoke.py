@@ -167,6 +167,33 @@ and the script exits non-zero without printing the result line:
                  image mean against the grid's at the same seed within the
                  JAX package's bars (the hash's within 25%, the kd-tree's
                  within 5%); the mean |difference| per pixel printed.
+19a. graphs    - the compiled iteration. On the card a Renderer renders
+                 PT, PPM (grid, hash, medium), VCM and VCM+VM, dense and
+                 BVH, as replays of one iteration captured in a CUDA
+                 graph (renderer.CapturedStep), so every main phase above
+                 times the graph route; a phase's launches are its
+                 wrappers' counts (eager iterations: the first of each
+                 capture) plus the replays' (the capture's counts times
+                 the replays). For PT main, PPM main, PPM in the medium,
+                 the hash, VCM main, VCM+VM main, Atrium PT 512^2 and
+                 Conference PT 1024^2, at the main phases' iteration
+                 counts: the film of n replays against the film of the
+                 eager body (the graph's plain version), bit for bit
+                 (VCM and VCM+VM, whose t=1 splats add atomically, at
+                 shard-main's bar, the max difference printed); one eager
+                 step with the iteration, key and radius as device
+                 tensors under torch.cuda.set_sync_debug_mode("error");
+                 the capture's launches equal to an eager iteration's,
+                 and the wrappers' counters still during the replays;
+                 ms/iter eager against graph in turns (eager, graph,
+                 graph, eager), median and spread; the capture's seconds,
+                 the graph pool's bytes and the device's idle share over
+                 one replayed iteration under torch.profiler (the device
+                 alone), and over one eager iteration (its busy time
+                 beside); a camera
+                 restart (Camera.orbit) that replays the same graph and
+                 equals the eager film at the new camera. Each line
+                 carries nvidia-smi's name and power limit.
 
 20. shard-main - the distribution's sharded step (parallel/render.py) over
                  a one-rank NCCL process group in this process, at full
@@ -209,9 +236,10 @@ and the script exits non-zero without printing the result line:
                  renders must have launched B1, B2 and B3.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 8b, 11, 12, 15, 16, 18, 19, 20's sharded timed
-steps and 22's workers, summed over their ranks; B6's over 3a's run of
-the microbenchmark), errors, times and bounds; the last line is
+the main phases (5, 8, 8b, 11, 12, 15, 16, 18, 19, 19a's graph turns,
+20's sharded timed steps and 22's workers, summed over their ranks; B6's
+over 3a's run of the microbenchmark), errors, times and bounds; the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -341,6 +369,9 @@ SHARD_TIMING_ITERS = {"PT": 5, "PPM": 3, "VCM+VM": 1, "Atrium PT": 3}
 # image agree to float tolerance, not bits: share of pixels within rtol,
 # and the image mean
 SHARD_PIXEL_RTOL, SHARD_MIN_AGREEING, SHARD_MEAN_RTOL = 1e-4, 0.999, 1e-5
+# graphs: the camera restart's orbit (radians about and toward the up
+# axis), small enough that every cell's camera stays inside its scene
+GRAPH_ORBIT = (0.05, 0.02)
 RANKS = 2
 RANKS_SIZE = 64
 # 2-rank sharded image against the unsharded one where a sum over ranks
@@ -653,16 +684,21 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3,
 
 
 # ---------------------------------------------------------------------------
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device available")
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])   # name, power limit
+    print(card_line())   # name, power limit
     # film.save_png needs PIL; scene import will read images
     try:
         import PIL
@@ -879,8 +915,9 @@ def iteration_calls(scene, cam, cfg, names):
 
     for k in names:
         setattr(isect, k, recorder(k))
-    try:
-        Renderer(scene, cam, cfg, seed=0).compute_iteration(0)
+    try:   # the eager body: a replay would call no wrapper
+        r = Renderer(scene, cam, cfg, seed=0)
+        r._iteration(0, r._radius_sq(0))
     finally:
         for k, w in wrappers.items():
             setattr(isect, k, w)
@@ -1099,8 +1136,8 @@ def ppm_gather_inputs(dev, medium: bool = False, scene=None, cam=None,
                       valid=valid, **kw)
 
     ppm.gather_photons_tiled = record
-    try:
-        r.compute_iteration(0)
+    try:   # the eager body: a replay would call no wrapper
+        r._iteration(0, r._radius_sq(0))
     finally:
         ppm.gather_photons_tiled = gather
     (call,) = calls
@@ -1326,8 +1363,8 @@ def vcm_merge_inputs(dev):
                      u_rows, depth1, mesh=mesh)
 
     vcm.merge_vertices_tiled = record
-    try:
-        r.compute_iteration(0)
+    try:   # the eager body: a replay would call no wrapper
+        r._iteration(0, r._radius_sq(0))
     finally:
         vcm.merge_vertices_tiled = merge
     if len(calls) != cfg.vcm_max_path_length:
@@ -1652,8 +1689,10 @@ def phase_goldens(dev, with_bvh: bool = False) -> None:
         before = [w.launches for w in (ik.closest_hit_tris, bk.traverse)]
         r = Renderer(scene, cam, golden_pt_config(), seed=GOLDEN_SEED)
         img = r.render(GOLDEN_ITERS).mean_radiance().cpu().numpy()
-        dense, walked = [w.launches - c for w, c in zip(
-            (ik.closest_hit_tris, bk.traverse), before)]
+        graph = r.kernel_launches()
+        dense, walked = [w.launches - c + graph.get(w.__name__, 0)
+                         for w, c in zip((ik.closest_hit_tris, bk.traverse),
+                                         before)]
         if with_bvh and (dense or not walked):
             raise AssertionError(f"{name} with a BVH launched B1 {dense} "
                                  f"and B5 {walked} times")
@@ -1668,23 +1707,52 @@ def phase_goldens(dev, with_bvh: bool = False) -> None:
             raise AssertionError(f"{name} PT diverged from its golden")
 
 
+def _launch_counts(r=None, graph_before: dict | None = None) -> dict:
+    """Each render kernel's launches: its wrapper's count (eager
+    iterations), plus the graph replays of the Renderer ``r`` since
+    ``graph_before`` (``r.kernel_launches()``: capture counts x replays; a
+    replay calls no wrapper)."""
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    graph = r.kernel_launches() if r is not None else {}
+    before = graph_before or {}
+    return {w.__name__: w.launches + graph.get(w.__name__, 0)
+            - before.get(w.__name__, 0) for w in kernel_wrappers()}
+
+
+def _reset_launches() -> None:
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    for w in kernel_wrappers():
+        w.launches = 0
+
+
+def graph_pool_gib(r) -> float:
+    """The GiB the renderer's captured step reserved at its capture (its
+    graph pool, which a replay reuses: the peak a timed rep measures
+    leaves it out)."""
+    step = r.captured_step
+    return 0.0 if step is None else step.pool_bytes / 2 ** 30
+
+
 def timed_reps(r, iters: int, wrappers, expected: dict, tag: str):
     """MAIN_REPS timed renders of ``iters`` iterations, each after a
     restart; in every rep each wrapper must launch its kernel ``expected``
-    times. Returns (launches summed over the reps, seconds per rep, the
-    last rep's film)."""
+    times (on the graph route: the replays' launches, the wrappers' own
+    counts staying at 0). Returns (launches summed over the reps, seconds
+    per rep, the last rep's film)."""
     launches = {w.__name__: 0 for w in wrappers}
     times = []
     for rep in range(MAIN_REPS):
         r.restart()
         for w in wrappers:
             w.launches = 0
+        graph_before = r.kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         film = r.render(iters)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts = {w.__name__: w.launches for w in wrappers}
+        every = _launch_counts(r, graph_before)
+        counts = {w.__name__: every[w.__name__] for w in wrappers}
         print(f"[{tag}] rep {rep}: {times[-1]:.4f} s, launches {counts}")
         for k, c in counts.items():
             if c != expected[k]:
@@ -1900,7 +1968,8 @@ def phase_media_main(dev) -> tuple[dict, float]:
           f"ms/iter median {med / PPM_MAIN_ITERS * 1e3:.3f}, min "
           f"{min(times) / PPM_MAIN_ITERS * 1e3:.3f}, spread "
           f"{(max(times) - min(times)) / med:.4f}; peak memory "
-          f"{peak / 2 ** 30:.3f} GiB; per iteration: "
+          f"{peak / 2 ** 30:.3f} GiB besides the graph pool's "
+          f"{graph_pool_gib(r):.3f} GiB; per iteration: "
           + ", ".join(f"{k} {v:.6g}" for k, v in per_it.items())
           + ", launches " + ", ".join(
               f"{k} {c / (MAIN_REPS * PPM_MAIN_ITERS):g}"
@@ -2097,17 +2166,25 @@ def phase_vcm_parity(dev) -> None:
         raise AssertionError("VCM+VM on the card differs from the CPU port")
 
 
-def profile_iteration(r, tag: str) -> None:
-    """One more iteration under torch.profiler: device operations launched,
-    their summed device time against the profiled wall time, the costliest
-    ones and the port's kernels, and the host time of the integrator's
-    ranges (whose device-side annotations are not operations)."""
+def profile_iteration(r, tag: str, render=None, host: bool = True) -> dict:
+    """One more iteration (``r.render(1)``, or ``render()``) under
+    torch.profiler: device operations launched, their summed device time
+    against the profiled wall time, the costliest ones and the port's
+    kernels, and, with ``host``, the host time of the integrator's ranges
+    (whose device-side annotations are not operations; a graph replay
+    runs no range). Returns the operations, busy ms, wall ms and idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        r.render(1)
+        if render is None:
+            r.render(1)
+        else:
+            render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ranges: dict[str, float] = {}
@@ -2123,6 +2200,8 @@ def profile_iteration(r, tag: str) -> None:
             t[1] += ms
     n_ops = sum(c for c, _ in by_name.values())
     busy_ms = sum(ms for _, ms in by_name.values())
+    if n_ops == 0:
+        raise AssertionError(f"{tag}: the profile holds no device operation")
     print(f"[{tag}] profiled iteration: {n_ops} device operations, device "
           f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle "
           f"{1.0 - busy_ms / wall_ms:.4f} under the profiler); host ms per "
@@ -2136,6 +2215,8 @@ def profile_iteration(r, tag: str) -> None:
     for name, (count, ms) in top:
         print(f"[{tag}]   {ms:9.3f} ms {ms / busy_ms:7.2%} x{count:<6d} "
               f"{name[:100]}")
+    return {"operations": n_ops, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "idle": 1.0 - busy_ms / wall_ms}
 
 
 def phase_vcm_main(dev, use_vm: bool) -> dict:
@@ -2176,7 +2257,8 @@ def phase_vcm_main(dev, use_vm: bool) -> dict:
           f"{med / iters * 1e3:.3f}, min {min(times) / iters * 1e3:.3f}, "
           f"spread {(max(times) - min(times)) / med:.4f}; rays/s "
           f"{rays / med:.4g}; light vertices stored per iteration "
-          f"{stored:.6g}; peak device memory {peak:.3f} GiB")
+          f"{stored:.6g}; peak device memory {peak:.3f} GiB besides the "
+          f"graph pool's {graph_pool_gib(r):.3f} GiB")
 
     img = film.mean_radiance()
     if tuple(img.shape) != (MAIN_SIZE, MAIN_SIZE, 3):
@@ -2259,7 +2341,8 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
           f"{med / iters * 1e3:.3f}, min {min(times) / iters * 1e3:.3f}, "
           f"spread {(max(times) - min(times)) / med:.4f}; rays/s "
           f"{rays / med:.4g}; scene build {build_s:.3f} s; peak device "
-          f"memory {peak:.3f} GiB")
+          f"memory {peak:.3f} GiB besides the graph pool's "
+          f"{graph_pool_gib(r):.3f} GiB")
 
     img = film.mean_radiance()
     if tuple(img.shape) != (size, size, 3):
@@ -2584,8 +2667,8 @@ def phase_photon_maps(dev) -> dict:
             return out
 
         setattr(ppm, builder, timed_build)
-        try:
-            r.compute_iteration(0)
+        try:   # the eager body: a replay would not call the builder
+            r._iteration(0, r._radius_sq(0))
         finally:
             setattr(ppm, builder, build)
         med = statistics.median(times)
@@ -2614,20 +2697,216 @@ def phase_photon_maps(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the compiled iteration: one captured CUDA graph a Renderer replays
+def graph_cells(dev):
+    """(label, scene, camera, config, iterations, bit for bit) of the
+    graphs phase: the main phases' configurations and iteration counts."""
+    from oppositerenderer_tpu_torch.config import (PhotonMapStructure,
+                                                   RenderConfig)
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    medium = dataclasses.replace(scene, medium=scene_medium(dev))
+    pt = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
+    ppm = ppm_main_config()
+    hashed = ppm.replace(
+        photon_map_structure=PhotonMapStructure.STOCHASTIC_HASH)
+    yield "PT main", scene, cam, pt, MAIN_ITERS, True
+    yield "PPM main", scene, cam, ppm, PPM_MAIN_ITERS, True
+    yield "PPM in the medium", medium, cam, ppm, PPM_MAIN_ITERS, True
+    yield "the hash", scene, cam, hashed, PHOTON_MAP_ITERS, True
+    # VCM's t=1 splats add atomically: two renders agree to float
+    # tolerance (shard-main's bar), not bits
+    yield "VCM main", scene, cam, vcm_main_config(), VCM_MAIN_ITERS, False
+    yield ("VCM+VM main", scene, cam, vcm_main_config(True),
+           VCM_VM_MAIN_ITERS, False)
+    for name, size, iters in (("Atrium", ATRIUM_SIZE, ATRIUM_ITERS),
+                              ("Conference", CONFERENCE_SIZE,
+                               CONFERENCE_ITERS)):
+        bscene, bcam = get_scene_by_name(name, dev)
+        yield (f"{name} PT", bscene, bcam,
+               RenderConfig(width=size, height=size), iters, True)
+
+
+def eager_film(r, n: int, camera=None) -> torch.Tensor:
+    """The film ``r.render(n)`` accumulates from a restart, through the
+    eager body (the graph's plain version): the same chunks, sums and
+    order, so the same bits where nothing adds atomically."""
+    chunk = max(1, r.cfg.iterations_per_dispatch)
+    fused = r._build_fused(eager=True)
+    camera = r.camera if camera is None else camera
+    accum = torch.zeros((r.cfg.height, r.cfg.width, 3), dtype=torch.float32,
+                        device=r.device)
+    done = 0
+    while done < n:
+        k = min(chunk, n - done)
+        accum = accum + fused(camera, done, r.root_key, k, 1)[0]
+        done += k
+    return accum
+
+
+def films_agree(label: str, got: torch.Tensor, want: torch.Tensor,
+                bits: bool) -> str:
+    """Raise unless the graph's film equals the eager film bit for bit
+    (``bits``) or within shard-main's bar; returns what was found."""
+    err = float((got - want).abs().max())
+    if bits:
+        if not torch.equal(got, want):
+            raise AssertionError(f"graphs {label}: the graph's film differs "
+                                 f"from the eager film (max |diff| {err:.3g})")
+        return "equal bit for bit"
+    g, w = got.double(), want.double()
+    agree = float(torch.isclose(g, w, rtol=SHARD_PIXEL_RTOL,
+                                atol=0.0).all(dim=-1).double().mean())
+    mean_rel = abs(float(g.mean() / w.mean()) - 1.0)
+    if agree < SHARD_MIN_AGREEING or mean_rel > SHARD_MEAN_RTOL:
+        raise AssertionError(f"graphs {label}: {agree:.6f} of the pixels "
+                             f"within rtol {SHARD_PIXEL_RTOL}, mean off by "
+                             f"{mean_rel:.2e} (max |diff| {err:.3g})")
+    return (f"{agree:.6f} of the pixels within rtol {SHARD_PIXEL_RTOL}, "
+            f"mean off by {mean_rel:.2e}, max |diff| {err:.3g} (atomic "
+            "splats)")
+
+
+def phase_graphs(dev) -> dict:
+    """Each main configuration through the captured iteration
+    (``renderer.CapturedStep``) against the eager body it captured: the
+    film of n replays equal to the eager film (bit for bit, VCM at
+    shard-main's bar); one eager step with device operands under
+    ``torch.cuda.set_sync_debug_mode("error")``; the capture's launches
+    equal to one eager iteration's, the wrappers' counters still during
+    the replays; ms/iter eager against graph in turns (eager, graph,
+    graph, eager); capture seconds, the graph pool's bytes, device idle
+    over one replayed and one eager iteration; a camera restart
+    (``Camera.orbit``) that replays without a new capture and equals the
+    eager film at the new camera. Returns the replays' launches (the graph
+    turns)."""
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    from oppositerenderer_tpu_torch.core.rng import device_key
+    from oppositerenderer_tpu_torch.renderer import (Renderer,
+                                                     ppm_radius_sq_traced)
+    wrappers = kernel_wrappers()
+    card = card_line()
+    launches = {w.__name__: 0 for w in wrappers}
+    rows = []
+    for label, scene, cam, cfg, n, bits in graph_cells(dev):
+        tag = f"graphs {label}"
+        r = Renderer(scene, cam, cfg, seed=0)
+        if not r.uses_graph():
+            raise AssertionError(f"{tag}: the renderer takes the eager "
+                                 "route")
+        # the eager counts of one iteration, which also builds the kernels
+        # and the scene's tables before the sync check
+        before = [w.launches for w in wrappers]
+        eager_film(r, 1)
+        torch.cuda.synchronize()
+        eager_counts = {w.__name__: w.launches - b
+                        for w, b in zip(wrappers, before)}
+        # one eager step with device operands reads nothing back
+        it = torch.full((), 1, dtype=torch.int64, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r._raw_step()(r.camera, it, device_key(r.root_key, dev),
+                          ppm_radius_sq_traced(r.ppm_initial_radius,
+                                               cfg.ppm_alpha, it))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the first render runs its first iteration eagerly and captures
+        r.render(1)
+        step = r.captured_step
+        if step is None or step.graph is None:
+            raise AssertionError(f"{tag}: no graph was captured")
+        capture = {k: c for k, c in step.capture_launches.items()}
+        if capture != eager_counts:
+            raise AssertionError(f"{tag}: the capture launches {capture}, "
+                                 f"an eager iteration {eager_counts}")
+        # timing in turns; the replays' launches by the capture's counts;
+        # the first turn's films of each route compared after
+        times = {"eager": [], "graph": []}
+        films = {}
+        for kind in ("eager", "graph", "graph", "eager"):
+            counts = [w.launches for w in wrappers]
+            graph_before = r.kernel_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "eager":
+                film = eager_film(r, n)
+            else:
+                r.restart()
+                film = r.render(n).accum
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / n * 1e3)
+            films.setdefault(kind, film)
+            if kind == "graph":
+                if [w.launches for w in wrappers] != counts:
+                    raise AssertionError(f"{tag}: a wrapper was called "
+                                         "during the replays")
+                graph = r.kernel_launches()
+                for k, c in capture.items():
+                    got = graph.get(k, 0) - graph_before.get(k, 0)
+                    if got != n * c:
+                        raise AssertionError(f"{tag}: {k} launched {got} "
+                                             f"times in {n} replays")
+                    launches[k] += got
+        # films: n replays against the eager body
+        found = films_agree(label, films["graph"], films["eager"], bits)
+        # the device alone (no host operations recorded, which would
+        # slow the eager iteration's profile most)
+        prof = profile_iteration(r, tag, host=False)
+        # the eager body's device time in the same call: what the graph's
+        # replay can approach
+        eager_prof = profile_iteration(r, f"{tag} eager",
+                                       lambda: eager_film(r, 1), host=False)
+        # a camera restart: the same graph, the new camera's film
+        orbited = cam.orbit(*GRAPH_ORBIT)
+        replays = step.replays
+        r.restart(camera=orbited)
+        moved = r.render(1).accum
+        if (r.captured_step is not step or step.graph is None
+                or step.replays != replays + 1):
+            raise AssertionError(f"{tag}: the camera restart captured anew")
+        moved_found = films_agree(f"{label} orbited", moved,
+                                  eager_film(r, 1, orbited), bits)
+        if float(moved.double().mean()) <= 0.0 or not bool(
+                torch.isfinite(moved).all()):
+            raise AssertionError(f"{tag}: the orbited film is not finite "
+                                 "and positive")
+        eager_ms, graph_ms = (statistics.median(times[k])
+                              for k in ("eager", "graph"))
+        spread = {k: (max(v) - min(v)) / statistics.median(v)
+                  for k, v in times.items()}
+        print(f"[{tag}] {cfg.width}^2, {n} iterations: graph film {found}; "
+              f"orbited camera replayed without a capture, {moved_found}; "
+              f"launches an iteration {capture}, equal to the eager body's;"
+              f" ms/iter in turns (eager, graph, graph, eager): eager "
+              f"{eager_ms:.3f} ({', '.join(f'{t:.3f}' for t in times['eager'])}"
+              f"; spread {spread['eager']:.4f}), graph {graph_ms:.3f} "
+              f"({', '.join(f'{t:.3f}' for t in times['graph'])}; spread "
+              f"{spread['graph']:.4f}), {eager_ms / graph_ms:.3f}x; capture "
+              f"{step.capture_seconds:.3f} s, pool {step.pool_bytes} bytes; "
+              f"device idle over a replayed iteration {prof['idle']:.4f} "
+              f"({prof['operations']} operations, busy "
+              f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms), over an "
+              f"eager iteration {eager_prof['idle']:.4f} "
+              f"({eager_prof['operations']} operations, busy "
+              f"{eager_prof['busy_ms']:.3f} of {eager_prof['wall_ms']:.3f} "
+              f"ms); {card}")
+        rows.append({"cell": label, "eager_ms": eager_ms,
+                     "graph_ms": graph_ms, "spread": spread,
+                     "capture_s": step.capture_seconds,
+                     "pool_bytes": step.pool_bytes, "idle": prof["idle"],
+                     "busy_ms": prof["busy_ms"],
+                     "eager_busy_ms": eager_prof["busy_ms"],
+                     "eager_idle": eager_prof["idle"]})
+        del r, step
+        torch.cuda.empty_cache()
+    print(f"[graphs] {json.dumps(rows)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # distribution
 def _scrubbed(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, 0.0)
-
-
-def _launch_counts() -> dict:
-    from oppositerenderer_tpu_torch.parallel.worker import kernel_wrappers
-    return {w.__name__: w.launches for w in kernel_wrappers()}
-
-
-def _reset_launches() -> None:
-    from oppositerenderer_tpu_torch.parallel.worker import kernel_wrappers
-    for w in kernel_wrappers():
-        w.launches = 0
 
 
 def one_rank_nccl_mesh(dev):
@@ -2756,6 +3035,7 @@ def phase_shard_main(dev, mesh) -> tuple[dict, float]:
             fn()                                    # warm-up
             torch.cuda.synchronize()
             _reset_launches()
+            graph_before = r.kernel_launches()
             if kind == "sharded" and label == "PPM all-to-all":
                 xch.gather_photons_tiled = record
             try:
@@ -2763,7 +3043,7 @@ def phase_shard_main(dev, mesh) -> tuple[dict, float]:
             finally:
                 xch.gather_photons_tiled = gather
             torch.cuda.synchronize()
-            counts[kind] = _launch_counts()
+            counts[kind] = _launch_counts(r, graph_before)
         if counts["sharded"] != counts["unsharded"]:
             raise AssertionError(f"shard-main {label}: sharded launches "
                                  f"{counts['sharded']}, unsharded "
@@ -3147,8 +3427,11 @@ def phase_tooling(dev) -> None:
     r = Renderer(scene, cam, pt_cfg, seed=0)
     r.render_next_iteration()
     with tempfile.TemporaryDirectory() as logdir:
+        # a replay (the graph's kernels) and the eager body (its pass
+        # ranges: a replay runs no Python)
         with trace(logdir):
             r.render_next_iteration()
+            r._iteration(r.iteration, r._radius_sq(r.iteration))
         events = json.loads((Path(logdir) / TRACE_FILE).read_text())[
             "traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
@@ -3258,7 +3541,7 @@ def phase_viewer(dev) -> None:
         serving.join(timeout=60)
     if serving.is_alive() or svc._thread.is_alive():
         raise AssertionError("viewer: a thread outlived the stop")
-    launches = _launch_counts()
+    launches = _launch_counts(svc.renderer)
     print(f"[viewer] stopped cleanly after {time.perf_counter() - t0:.1f} "
           f"s; kernel launches {launches}")
     for k in ("closest_hit_tris", "occluded_tris", "gather_photons_tiled"):
@@ -3579,7 +3862,8 @@ def main() -> int:
             launches[k] += c
     timed("import-parity", phase_import_parity, dev)
     for phase, args in (("import-main", (phase_import_main, dev, kernels)),
-                        ("photon-maps", (phase_photon_maps, dev))):
+                        ("photon-maps", (phase_photon_maps, dev)),
+                        ("graphs", (phase_graphs, dev))):
         for k, c in timed(phase, *args).items():
             launches[k] += c
     mesh = one_rank_nccl_mesh(dev)

@@ -96,13 +96,18 @@ def run_method(scene, cam, method: str, size: int, device: torch.device,
     first_frame_s = load_s + time.perf_counter() - t0
     for w in wrappers:
         w.launches = 0
+    graph_before = r.kernel_launches()
     times = []
     for _ in range(TIMED_ITERS):
         t0 = time.perf_counter()
         r.render(1)
         _sync(device)
         times.append(time.perf_counter() - t0)
-    launches = {w.__name__: w.launches for w in wrappers}
+    # on the card the iterations replay a CUDA graph: its launches are
+    # the capture's counts times the replays, not wrapper calls
+    graph = r.kernel_launches()
+    launches = {w.__name__: w.launches + graph.get(w.__name__, 0)
+                - graph_before.get(w.__name__, 0) for w in wrappers}
     img = r.film.mean_radiance()
     med = statistics.median(times)
     rec = {"iterations": WARMUP_ITERS + TIMED_ITERS,

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import launch
+from . import cuda_build
 from .zero_grad import zero_gradient
 
 BIG = 1e30
@@ -270,11 +270,9 @@ def traverse_any_plain(bvh, o, d, tmin, tmax):
 # ---------------------------------------------------------------------------
 
 def _launch(name, bvh, o, d, tmin, tmax, outs):
-    with torch.cuda.device(o.device):
-        launch(name, bvh.rows.data_ptr(), bvh.rows.shape[0], bvh.root_code,
-               bvh.leaf_size, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-               tmax.data_ptr(), o.shape[0], *(a.data_ptr() for a in outs),
-               torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(o.device, name, bvh.rows, bvh.rows.shape[0],
+                         bvh.root_code, bvh.leaf_size, o, d, tmin, tmax,
+                         o.shape[0], *outs)
 
 
 def compact_live_plain(tmin, tmax):
@@ -311,10 +309,8 @@ def compact_live(tmin, tmax):
                       device=tmin.device)
     counts = torch.empty(nb, dtype=torch.int32, device=tmin.device)
     if n:
-        with torch.cuda.device(tmin.device):
-            launch("bvh_compact_live", tmin.data_ptr(), tmax.data_ptr(), n,
-                   live.data_ptr(), counts.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
+        cuda_build.launch_on(tmin.device, "bvh_compact_live", tmin, tmax, n,
+                             live, counts)
     return live, counts
 
 

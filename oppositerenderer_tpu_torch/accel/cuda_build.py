@@ -132,3 +132,16 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with cudaError "
                            f"{err}")
+
+
+def launch_on(device, name: str, *args) -> None:
+    """Launch entry point ``name`` on ``device``'s current stream (inside a
+    CUDA graph capture, the capturing stream): tensors in ``args`` pass as
+    their data pointers, and the stream is appended as the last argument.
+    Every render-path wrapper launches through here, so this is the one
+    place that touches the CUDA runtime."""
+    import torch
+    with torch.cuda.device(device):
+        launch(name, *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                       for a in args),
+               torch.cuda.current_stream().cuda_stream)

@@ -34,7 +34,7 @@ import torch
 
 from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
                           PHOTON_RECORD, PhotonGrid, ceil_div)
-from .cuda_build import launch
+from . import cuda_build
 from .zero_grad import zero_gradient
 
 TILE = 256          # queries per tile
@@ -67,6 +67,22 @@ def tile_block_order(width: int, height: int) -> tuple[np.ndarray,
             .transpose(0, 2, 1, 3).reshape(-1))
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return perm, inv
+
+
+def tile_block_order_on(width: int, height: int, device: torch.device
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tile_block_order` as int64 tensors made on ``device`` by
+    torch operations: an iteration builds them without a host-to-device
+    copy, so it can be captured in a CUDA graph."""
+    if width % BLOCK or height % BLOCK:
+        raise ValueError(f"{width}x{height} does not split into "
+                         f"{BLOCK}x{BLOCK} blocks")
+    idx = torch.arange(height * width, dtype=torch.int64, device=device)
+    perm = (idx.reshape(height // BLOCK, BLOCK, width // BLOCK, BLOCK)
+            .permute(0, 2, 1, 3).reshape(-1))
+    inv = torch.empty_like(perm)
+    inv[perm] = idx
     return perm, inv
 
 
@@ -262,13 +278,11 @@ def gather_photons_tiled_kernel(starts, lens, weights, rows, r2, qpos,
         return out
     part = torch.empty((SLOT_GROUPS,) + tuple(out.shape),
                        dtype=torch.float32, device=qpos.device)
-    with torch.cuda.device(qpos.device):
-        launch("gather_photons_tiled", *(a.data_ptr() for a in (
-                   starts, lens, weights, rows, r2, qpos, qnormal,
-                   grid.packed, grid.offsets, grid.origin, grid.cell_size)),
-               grid.resolution, starts.shape[0], SLOT_GROUPS,
-               int(bool(check_normal)), part.data_ptr(), out.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(
+        qpos.device, "gather_photons_tiled", starts, lens, weights, rows, r2,
+        qpos, qnormal, grid.packed, grid.offsets, grid.origin,
+        grid.cell_size, grid.resolution, starts.shape[0], SLOT_GROUPS,
+        int(bool(check_normal)), part, out)
     gather_photons_tiled.launches += 1
     return out
 

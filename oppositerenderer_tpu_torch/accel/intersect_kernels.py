@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import launch
+from . import cuda_build
 from .zero_grad import zero_gradient
 
 BIG = 1e30
@@ -151,11 +151,8 @@ def closest_hit_tris(o, d, tmin, tmax, tris, chunk_size=None):
     v = torch.empty_like(t)
     if n == 0:
         return t, idx, u, v
-    with torch.cuda.device(o.device):
-        launch("closest_hit_tris", o.data_ptr(), d.data_ptr(),
-               tmin.data_ptr(), tmax.data_ptr(), tris.data_ptr(), n,
-               tris.shape[0], t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-               v.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(o.device, "closest_hit_tris", o, d, tmin, tmax,
+                         tris, n, tris.shape[0], t, idx, u, v)
     closest_hit_tris.launches += 1
     return t, idx, u, v
 
@@ -194,11 +191,8 @@ def occluded_tris(o, d, tmin, tmax, occ, chunk_size=None):
     out = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
     if o.shape[0] == 0:
         return out
-    with torch.cuda.device(o.device):
-        launch("occluded_tris", o.data_ptr(), d.data_ptr(),
-               tmin.data_ptr(), tmax.data_ptr(), occ.data_ptr(), o.shape[0],
-               occ.shape[0], out.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(o.device, "occluded_tris", o, d, tmin, tmax, occ,
+                         o.shape[0], occ.shape[0], out)
     occluded_tris.launches += 1
     return out
 

@@ -37,7 +37,7 @@ import torch
 from ..core.math import INV_PI, Tensor, dot, local_reflect
 from ..photon_map import (GAUSS_ALPHA, GAUSS_BETA, GAUSS_EXP_NEG_BETA,
                           cell_coords, cell_index_1d)
-from .cuda_build import launch
+from . import cuda_build
 from .zero_grad import zero_gradient
 from .gather_kernels import (CHUNK, PLAIN_ELEMENT_BUDGET, ROWS, TILE,
                              _tile_tables)
@@ -234,13 +234,11 @@ def merge_vertices_tiled_kernel(starts, lens, weights, rows, scal, qtab,
         return out1, out2
     part = torch.empty((2, SLOT_GROUPS) + tuple(out1.shape),
                        dtype=torch.float32, device=qtab.device)
-    with torch.cuda.device(qtab.device):
-        launch("merge_vertices_tiled", *(a.data_ptr() for a in (
-                   starts, lens, weights, rows, scal, qtab, vgrid.packed,
-                   vgrid.offsets, vgrid.origin, vgrid.cell_size)),
-               vgrid.resolution, starts.shape[0], SLOT_GROUPS,
-               part.data_ptr(), out1.data_ptr(), out2.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(
+        qtab.device, "merge_vertices_tiled", starts, lens, weights, rows,
+        scal, qtab, vgrid.packed, vgrid.offsets, vgrid.origin,
+        vgrid.cell_size, vgrid.resolution, starts.shape[0], SLOT_GROUPS,
+        part, out1, out2)
     merge_vertices_tiled.launches += 1
     return out1, out2
 
@@ -278,10 +276,14 @@ def _sorted_tables(vgrid, cfg, cells, qtab, kd_pi, rho, radius_sq, mis_vc_w,
     starts, lens, weights, _, _, rows = _tile_tables(
         vgrid, qtab[:, 0:3], torch.sqrt(radius_sq), u_rows,
         valid=qtab[:, 24] > 0.5)
+    # the integers by fills: no host-to-device copy in a captured step
     scal = torch.stack([
-        torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
-        for x in (radius_sq, mis_vc_w, float(depth1),
-                  float(cfg.vcm_max_path_length))])
+        radius_sq.reshape(()),
+        torch.as_tensor(mis_vc_w, dtype=torch.float32,
+                        device=dev).reshape(()),
+        torch.full((), float(depth1), dtype=torch.float32, device=dev),
+        torch.full((), float(cfg.vcm_max_path_length), dtype=torch.float32,
+                   device=dev)])
     return (order, (starts, lens, weights, rows, scal, qtab, vgrid),
             kd_pi[order], rho[order])
 

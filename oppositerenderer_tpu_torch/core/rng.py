@@ -1,9 +1,14 @@
 """Counter-based RNG, bit-identical to ``oppositerenderer_tpu/core/rng.py``.
 
-A key is a pair of 32-bit words ``(k0, k1)`` held as Python ints. JAX's
+A key is a pair of 32-bit words ``(k0, k1)``: Python ints (a host key),
+or 0-d int64 tensors (a device key, :func:`device_key`). JAX's
 ``PRNGKey(seed)`` is ``(0, seed mod 2**32)``, and ``fold_in(key, data)`` is
 one Threefry-2x32 block on the counter ``(0, data)``, so the repo's own
-``threefry2x32`` reproduces every key the JAX package derives.
+``threefry2x32`` reproduces every key the JAX package derives. The same
+functions take either form and give the same words: a device key, or an
+iteration held as an int64 tensor, keeps every derived key on the device,
+so a step that takes them as operands reads nothing from the host and can
+be captured in a CUDA graph (``renderer.py``).
 
 torch has no unsigned 32-bit arithmetic on every device, so 32-bit words
 live in int64 tensors and are masked to 32 bits after each add and shift.
@@ -21,7 +26,7 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 
-Key = tuple[int, int]
+Key = tuple  # (k0, k1): two Python ints, or two 0-d int64 tensors
 
 
 def make_root_key(seed: int) -> Key:
@@ -29,20 +34,50 @@ def make_root_key(seed: int) -> Key:
     return (0, int(seed) & MASK32)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in``: one Threefry block on the counter (0, data)."""
-    return tuple(int(w) for w in threefry2x32(key[0], key[1], 0,
-                                              int(data) & MASK32))
+def device_key(key: Key, device: torch.device | str) -> Key:
+    """A host key's words as 0-d int64 tensors on ``device``, each set by a
+    fill (no host-to-device copy)."""
+    return tuple(torch.full((), int(w) & MASK32, dtype=torch.int64,
+                            device=device) for w in key)
 
 
-def iteration_key(root: Key, iteration: int, pass_id: int) -> Key:
-    """Key for one (iteration, pass)."""
+def _words(w0, w1) -> Key:
+    """Two Threefry output words as a key: Python ints stay ints."""
+    if torch.is_tensor(w0) or torch.is_tensor(w1):
+        return (w0, w1)
+    return (int(w0), int(w1))
+
+
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in``: one Threefry block on the counter (0, data).
+    ``data`` is an int or an int64 tensor; the key is a device key when
+    the key or the data is a tensor (the data's shape broadcasts)."""
+    if not torch.is_tensor(data):
+        data = int(data)
+    return _words(*threefry2x32(key[0], key[1], 0, data & MASK32))
+
+
+def fold_in_range(key: Key, start: int, count: int) -> list[Key]:
+    """``[fold_in(key, start + i) for i in range(count)]``. For a device key
+    the ``count`` blocks run as one vector of counters, and each key is a
+    view of its element."""
+    if not torch.is_tensor(key[0]):
+        return [fold_in(key, start + i) for i in range(count)]
+    data = torch.arange(start, start + count, dtype=torch.int64,
+                        device=key[0].device)
+    w0, w1 = fold_in(key, data)
+    return list(zip(w0.unbind(), w1.unbind()))
+
+
+def iteration_key(root: Key, iteration, pass_id: int) -> Key:
+    """Key for one (iteration, pass). ``iteration`` is an int or a 0-d
+    int64 tensor (then the key is a device key)."""
     return fold_in(fold_in(root, pass_id), iteration)
 
 
 def key_data(key: Key) -> np.ndarray:
     """The key's two words as ``uint32[2]`` (``jax.random.key_data``)."""
-    return np.asarray(key, np.uint32)
+    return np.asarray([int(w) for w in key], np.uint32)
 
 
 def lane_key_words(keys: Sequence[Key], lanes_per_key: int,
@@ -50,8 +85,12 @@ def lane_key_words(keys: Sequence[Key], lanes_per_key: int,
                                                         torch.Tensor]:
     """Per-lane (k0, k1) words where lane ``l`` uses key
     ``keys[l // lanes_per_key]``: G independent iterations stacked in one
-    wavefront draw exactly the streams the separate iterations would."""
-    words = torch.tensor(list(keys), dtype=torch.int64, device=device)
+    wavefront draw exactly the streams the separate iterations would.
+    Device keys are stacked on the device; host keys are copied there."""
+    if torch.is_tensor(keys[0][0]):
+        words = torch.stack([torch.stack(k) for k in keys])
+    else:
+        words = torch.tensor(list(keys), dtype=torch.int64, device=device)
     return (torch.repeat_interleave(words[:, 0], lanes_per_key),
             torch.repeat_interleave(words[:, 1], lanes_per_key))
 
@@ -119,9 +158,10 @@ class LaneSampler:
     function of ``(key, lane_id, i)``, bit-identical to the JAX package's
     ``LaneSampler``.
 
-    ``key`` is a :data:`Key` or a pair of per-lane int64 word tensors
-    (:func:`lane_key_words`). ``cheap`` selects the integer-hash stream
-    (``RenderConfig.use_cheap_random``) instead of Threefry.
+    ``key`` is a :data:`Key` (host or device) or a pair of per-lane int64
+    word tensors (:func:`lane_key_words`). ``cheap`` selects the
+    integer-hash stream (``RenderConfig.use_cheap_random``) instead of
+    Threefry.
     """
 
     def __init__(self, key, lane_ids: torch.Tensor, cheap: bool = False):
@@ -134,8 +174,8 @@ class LaneSampler:
             self._lane_base = _lowbias32(_mul32(lanes, 0x85ebca6b) ^ base)
         else:
             # per-lane words broadcast over the column axis
-            self._k0 = k0[:, None] if torch.is_tensor(k0) else k0
-            self._k1 = k1[:, None] if torch.is_tensor(k1) else k1
+            self._k0 = k0[:, None] if torch.is_tensor(k0) and k0.dim() else k0
+            self._k1 = k1[:, None] if torch.is_tensor(k1) and k1.dim() else k1
             self._lanes = lanes
         self._n = 0  # column counter; draw i = f(key, lane, column)
 

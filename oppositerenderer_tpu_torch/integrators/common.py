@@ -18,6 +18,16 @@ from ..scene.texture import apply_normal_map, sample_bilinear
 from ..scene.types import EMITTER, GLASS, TEXTURED, Scene
 
 
+def device_scalar(x, device: torch.device) -> Tensor:
+    """``x`` (a Python number or a 0-d tensor) as a 0-d float32 tensor on
+    ``device``. A number is set by a fill, never copied from the host, so
+    a step that takes either form can be captured in a CUDA graph; both
+    round to the same float32."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def scene_epsilon(scene: Scene) -> Tensor:
     """Self-intersection offset scaled to the scene (the reference's fixed
     1e-4 suits the 2.5-unit box but is marginal at Cornell's 556 units).

@@ -40,14 +40,15 @@ import dataclasses
 import torch
 
 from ..accel.gather_kernels import (ROWS, TILE, gather_photons_tiled,
-                                    tile_block_order)
+                                    tile_block_order_on)
 from ..accel.intersect import intersect
 from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import PhotonMapStructure, RenderConfig
 from ..core.math import Tensor, dot, luminance
 from ..core.profiling import pass_scope
-from ..core.rng import Key, LaneSampler, fold_in, iteration_key
+from ..core.rng import Key, LaneSampler, fold_in, fold_in_range, \
+    iteration_key
 from ..core.sampling import (sample_cone, sample_disc, sample_unit_sphere,
                              sample_unit_hemisphere_cos)
 from ..lights import AREA, SPOT
@@ -56,7 +57,8 @@ from ..photon_map import (PhotonBatch, build_photon_grid,
                           gather_kdtree, gather_photons,
                           gather_stochastic_hash, min_cell_size_for_window)
 from ..scene.types import Medium, Scene
-from .common import bsdf_at_hit, nee_direct, pixel_coords, scene_epsilon
+from .common import (bsdf_at_hit, device_scalar, nee_direct, pixel_coords,
+                     scene_epsilon)
 from .media import (sample_scatter_distance, segment_overlap, transmittance,
                     volumetric_radiance_estimate)
 
@@ -148,8 +150,9 @@ def trace_eye_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
     # (RayType.h:16-22, Glass.cu:146-160); only a medium reads it
     inside = no()
 
+    depth_keys = fold_in_range(key, 1000, cfg.max_radiance_trace_depth)
     for depth in range(cfg.max_radiance_trace_depth):
-        skey = LaneSampler(fold_in(key, 1000 + depth), lane_ids,
+        skey = LaneSampler(depth_keys[depth], lane_ids,
                            cheap=cfg.use_cheap_random)
         # dead lanes trace an EMPTY interval (tmax 0 < tmin)
         hit = intersect(scene, o, d, tmin, torch.where(walking, BIG, 0.0))
@@ -320,8 +323,9 @@ def trace_photon_pass(scene: Scene, cfg: RenderConfig, key: Key,
         # the dielectric-interior bit (trace_eye_pass)
         inside = torch.zeros((n,), dtype=torch.bool, device=dev)
 
+    depth_keys = fold_in_range(key, 2000, cfg.max_photon_trace_depth)
     for depth in range(cfg.max_photon_trace_depth):
-        skey = LaneSampler(fold_in(key, 2000 + depth), lane_ids,
+        skey = LaneSampler(depth_keys[depth], lane_ids,
                            cheap=cfg.use_cheap_random)
         hit = intersect(scene, o, d, tmin, torch.where(alive, BIG, 0.0))
         bsdf, is_emitter, _ = bsdf_at_hit(scene, hit, d)
@@ -449,8 +453,7 @@ def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
                            cheap=cfg.use_cheap_random)
     with pass_scope("ppm_indirect_gather") as out:
         if W % 16 == 0 and H % 16 == 0:
-            perm, inv = (torch.as_tensor(a, dtype=torch.int64, device=dev)
-                         for a in tile_block_order(W, H))
+            perm, inv = tile_block_order_on(W, H, dev)
             u_rows = s_gather.next1().reshape(n // TILE, TILE)[:, :ROWS + 2]
             acc_b, stats = gather_photons_tiled(
                 grid, hp.position[perm], hp.ns[perm], radius,
@@ -463,19 +466,22 @@ def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
 
 
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
-                     iteration: int, base_key: Key, radius_sq
+                     iteration, base_key: Key, radius_sq
                      ) -> tuple[Tensor, dict]:
     """One PPM iteration at the squared gather radius ``radius_sq``:
     radiance [H, W, 3] and the stats dict (photons stored, average photon
     path length, the surface gather's counts: photons visited and
     subsampled on the grid, photons visited and lanes cut short
     (``kd_overrun``) on the kd-tree, none on the hash; in a medium the
-    volumetric photons stored)."""
+    volumetric photons stored). ``iteration`` is an int or a 0-d int64
+    tensor, ``base_key`` a host or a device key, ``radius_sq`` a number or
+    a 0-d tensor: the tensor forms draw the same numbers and read nothing
+    from the host (on the grid and the hash)."""
     W, H = cfg.width, cfg.height
     n = W * H
     dev = scene.device
     eps = scene_epsilon(scene)
-    radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32, device=dev)
+    radius_sq = device_scalar(radius_sq, dev)
     radius = torch.sqrt(radius_sq)
 
     eye_key = iteration_key(base_key, iteration, PASS_PPM_EYE)

@@ -21,7 +21,7 @@ from ..camera import Camera
 from ..config import RenderConfig
 from ..core.math import Tensor, max3
 from ..core.profiling import pass_scope
-from ..core.rng import Key, LaneSampler, fold_in, iteration_key, \
+from ..core.rng import Key, LaneSampler, fold_in_range, iteration_key, \
     lane_key_words
 from ..scene.types import Scene
 from .common import bsdf_at_hit, nee_direct, pixel_coords, scene_epsilon
@@ -31,23 +31,28 @@ BIG = 1e30
 
 
 def render_lanes(scene: Scene, camera: Camera, cfg: RenderConfig,
-                 iteration: int | Sequence[int], base_key: Key, px: Tensor,
-                 py: Tensor, lane_ids: Tensor) -> Tensor:
+                 iteration: int | Tensor | Sequence[int], base_key: Key,
+                 px: Tensor, py: Tensor, lane_ids: Tensor) -> Tensor:
     """PT radiance [n, 3] for arbitrary pixel lanes (the tile-shardable
     unit). ``lane_ids`` are GLOBAL lane indices, which select the RNG
     streams.
 
-    ``iteration`` is one iteration number, or G numbers: then the lanes are
-    G equal stacked groups and group g draws the streams of
+    ``iteration`` is one iteration number (an int, or a 0-d int64 tensor
+    with which, or with a device ``base_key``, every key is derived on
+    the device: the same streams, no host read), or G numbers: then the
+    lanes are G equal stacked groups and group g draws the streams of
     ``iteration[g]``, bit-identical to rendering the groups separately.
     """
     n = px.shape[0]
     device = px.device
     eps = scene_epsilon(scene)
-    its = [iteration] if isinstance(iteration, int) else list(iteration)
+    its = (list(iteration) if isinstance(iteration, (list, tuple))
+           else [iteration])
     if n % len(its):
         raise ValueError(f"{n} lanes do not split into {len(its)} groups")
     keys = [iteration_key(base_key, it, PASS_PT) for it in its]
+    # per group, the key of each bounce
+    depth_keys = [fold_in_range(k, 1, cfg.pt_max_segments) for k in keys]
 
     def words(ks: list[Key]):
         return ks[0] if len(ks) == 1 else lane_key_words(
@@ -67,7 +72,7 @@ def render_lanes(scene: Scene, camera: Camera, cfg: RenderConfig,
     tmin = torch.full((n,), 1.0, device=device) * eps
 
     for depth in range(cfg.pt_max_segments):
-        skey = sampler([fold_in(k, depth + 1) for k in keys])
+        skey = sampler([dk[depth] for dk in depth_keys])
         # dead lanes trace an EMPTY interval (tmax 0 < tmin)
         hit = intersect(scene, o, d, tmin, torch.where(active, BIG, 0.0))
         active = active & hit.hit
@@ -108,8 +113,9 @@ def render_lanes(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
-                     iteration: int, base_key: Key) -> Tensor:
-    """One full-frame PT iteration -> radiance [H, W, 3]."""
+                     iteration, base_key: Key) -> Tensor:
+    """One full-frame PT iteration -> radiance [H, W, 3]. ``iteration`` is
+    an int or a 0-d int64 tensor, ``base_key`` a host or a device key."""
     W, H = cfg.width, cfg.height
     device = scene.device
     px, py = pixel_coords(W, H, device)

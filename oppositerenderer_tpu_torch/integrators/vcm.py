@@ -40,14 +40,14 @@ from ..camera import Camera
 from ..config import RenderConfig
 from ..core.math import Frame, Tensor, dot, length, max3
 from ..core.profiling import pass_scope
-from ..core.rng import Key, LaneSampler, fold_in, iteration_key
+from ..core.rng import Key, LaneSampler, fold_in_range, iteration_key
 from ..core.sampling import cos_hemisphere_pdf_w, pdf_w_to_a
 from ..lights import light_emit, light_illuminate
 from ..photon_map import (PhotonBatch, cell_coords, cell_index_1d,
                           gather_cell_indices, gaussian_kernel_weight,
                           min_cell_size_for_window, photon_grid_geometry)
 from ..scene.types import Scene
-from .common import bsdf_at_hit, pixel_coords, scene_epsilon
+from .common import bsdf_at_hit, device_scalar, pixel_coords, scene_epsilon
 
 PASS_VCM_LIGHT = 4
 PASS_VCM_CAMERA = 5
@@ -160,8 +160,9 @@ def trace_light_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
     lane_row = torch.arange(n_paths, device=dev) * max_verts
     tmin = torch.full((n_paths,), 1.0, device=dev) * eps
 
+    depth_keys = fold_in_range(key, 3001, cfg.vcm_max_path_length - 1)
     for depth1 in range(1, cfg.vcm_max_path_length):   # depth after ++
-        skey = LaneSampler(fold_in(key, 3000 + depth1), lane_ids,
+        skey = LaneSampler(depth_keys[depth1 - 1], lane_ids,
                            cheap=cfg.use_cheap_random)
         hit = intersect(scene, o, d, tmin, torch.where(alive, BIG, 0.0))
         bsdf, is_emitter, _ = bsdf_at_hit(scene, hit, d)
@@ -186,8 +187,8 @@ def trace_light_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
                           ("dVC", dVC), ("dVM", dVM), ("mat", hit.mat),
                           ("ns", n_eff), ("ng", bsdf.ng), ("wo", -d)):
             bufs[name][row] = val
-        bufs["valid"][row] = True
-        bufs["depth"][row] = depth1
+        bufs["valid"].index_fill_(0, row, True)
+        bufs["depth"].index_fill_(0, row, depth1)
         n_stored = n_stored + storeable.to(torch.int32)
 
         # t=1: connect to the camera (vcm.h:65-161)
@@ -385,8 +386,7 @@ def _merge_vertices(scene: Scene, cfg: RenderConfig, cam_bsdf: BSDF,
             active, radius_sq, mis_vc_w, n_light_paths, u_rows, depth1,
             mesh=mesh)
 
-    radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32,
-                                device=cam_pos.device)
+    radius_sq = device_scalar(radius_sq, cam_pos.device)
     # inactive lanes may carry non-finite positions: masked before the
     # grid's float -> int casts
     pos_q = torch.where(active[:, None], cam_pos, vgrid.origin)
@@ -486,8 +486,9 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     tmin = torch.full((n,), 1.0, device=dev) * eps
 
+    depth_keys = fold_in_range(key, 4001, cfg.vcm_max_path_length)
     for depth1 in range(1, cfg.vcm_max_path_length + 1):
-        skey = LaneSampler(fold_in(key, 4000 + depth1), lane_ids,
+        skey = LaneSampler(depth_keys[depth1 - 1], lane_ids,
                            cheap=cfg.use_cheap_random)
         hit = intersect(scene, o, d, tmin, torch.where(alive, BIG, 0.0))
         live = alive & hit.hit
@@ -686,15 +687,18 @@ def mis_factors(cfg: RenderConfig, radius_sq: Tensor):
 
 
 def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
-                     iteration: int, base_key: Key, radius_sq
+                     iteration, base_key: Key, radius_sq
                      ) -> tuple[Tensor, dict]:
     """One VCM iteration at the squared merge radius ``radius_sq``:
     radiance [H, W, 3] and the stats (light vertices stored, average light
-    path vertices)."""
+    path vertices). ``iteration`` is an int or a 0-d int64 tensor,
+    ``base_key`` a host or a device key, ``radius_sq`` a number or a 0-d
+    tensor: the tensor forms draw the same numbers and read nothing from
+    the host."""
     dev = scene.device
     eps = scene_epsilon(scene)
     n_light_paths = cfg.width * cfg.height   # light launch = image size
-    radius_sq = torch.as_tensor(radius_sq, dtype=torch.float32, device=dev)
+    radius_sq = device_scalar(radius_sq, dev)
     mis_vm_w, mis_vc_w = mis_factors(cfg, radius_sq)
 
     lkey = iteration_key(base_key, iteration, PASS_VCM_LIGHT)

@@ -234,6 +234,11 @@ class MultiHostRenderer:
         self.stats["iterations"] += len(iterations)
         self.stats["render_seconds"] += time.perf_counter() - t0
 
+    def kernel_launches(self) -> dict[str, int]:
+        """The kernel launches of this process's graph replays
+        (``Renderer.kernel_launches``)."""
+        return self._renderer.kernel_launches()
+
     def reset(self) -> None:
         """Drop accumulated work (sequence-bump analog; after warm-up)."""
         self._accum = None

@@ -47,6 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..accel import kernel_wrappers
 from ..config import RenderConfig
 
 REPO = Path(__file__).resolve().parents[2]
@@ -108,16 +109,6 @@ def case_scene(case: dict, device):
             aabb_min=torch.zeros(3, device=device),
             aabb_max=torch.full((3,), float(edge), device=device)))
     return scene, cam
-
-
-def kernel_wrappers():
-    """The kernel wrappers whose ``launches`` count their launches."""
-    from ..accel import bvh_kernels as bk
-    from ..accel import gather_kernels as gk
-    from ..accel import intersect_kernels as ik
-    from ..accel import vm_kernels as vk
-    return (ik.closest_hit_tris, ik.occluded_tris, gk.gather_photons_tiled,
-            vk.merge_vertices_tiled, bk.traverse, bk.traverse_any)
 
 
 def render_unsharded(case: dict, device):
@@ -247,6 +238,10 @@ def _run_grad(case, device, world):
     return out
 
 
+# a case's result key for its Renderer's graph-replay launches
+GRAPH_LAUNCHES = "graph_launches"
+
+
 def _run_multihost(case, device, world):
     from .distributed import IterationScheduler, MultiHostRenderer
     cfg = config_from(case["cfg"])
@@ -268,7 +263,8 @@ def _run_multihost(case, device, world):
     return {"accum": film.accum, "iterations": torch.tensor(film.iterations),
             "rendered": world.psum(rendered),
             "render_seconds": torch.tensor(mhr.stats["render_seconds"]),
-            "merge_ms": world.pmax(torch.tensor([merge_ms]))[0]}
+            "merge_ms": world.pmax(torch.tensor([merge_ms]))[0],
+            GRAPH_LAUNCHES: mhr.kernel_launches()}
 
 
 KINDS = {"render": _run_render, "exchange": _run_exchange,
@@ -278,15 +274,18 @@ KINDS = {"render": _run_render, "exchange": _run_exchange,
 def run_cases(cases: list[dict], device, world) -> dict[str, np.ndarray]:
     """Every case on this rank; the results as host arrays, with each
     kernel's launches in the case summed over ranks
-    (``launches.<name>``)."""
+    (``launches.<name>``): the wrappers' counts, plus the launches of a
+    Renderer's graph replays where a case reports them."""
     out = {}
     wrappers = kernel_wrappers()
     for case in cases:
         for w in wrappers:
             w.launches = 0
         res = KINDS[case["kind"]](case, device, world)
-        counts = world.psum(torch.tensor([w.launches for w in wrappers],
-                                         dtype=torch.int64))
+        graph = res.pop(GRAPH_LAUNCHES, {})
+        counts = world.psum(torch.tensor(
+            [w.launches + graph.get(w.__name__, 0) for w in wrappers],
+            dtype=torch.int64))
         res.update({f"launches.{w.__name__}": c
                     for w, c in zip(wrappers, counts)})
         for k, v in res.items():

@@ -339,9 +339,12 @@ def build_stochastic_hash(photons: PhotonBatch, cell_size: Tensor,
     ``key`` (``jax.random.uniform``, over every row). A stable sort
     orders equal priorities by row, and the winner of each slot is the
     valid photon of highest rank in that order, found by a max-reduction,
-    so the table is the JAX package's bit for bit on every device. Only
-    valid photons enter the reduction: the JAX package sends the others
-    to one extra slot, whose atomics would all collide on the card."""
+    so the table is the JAX package's bit for bit on every device. Every
+    row enters the count and the reduction at its own slot, an invalid
+    one with a count of 0 and a rank of -1, so both have fixed sizes (no
+    compaction, no host read: the build can be captured in a CUDA graph);
+    the JAX package sends invalid rows to one extra slot, whose atomics
+    would all collide on the card."""
     from .core.rng import uniform
     p = photons.position
     v = photons.valid
@@ -354,9 +357,11 @@ def build_stochastic_hash(photons: PhotonBatch, cell_size: Tensor,
 
     prio = uniform(key, (p.shape[0],), dev)
     order = torch.sort(prio, stable=True).indices
-    rank = torch.nonzero(v[order]).squeeze(1)   # ranks of the valid rows
-    slot_r = slot[order[rank]]
-    count = torch.bincount(slot_r, minlength=n_slots).to(torch.int32)
+    v_r = v[order]                       # validity in rank order
+    slot_r = slot[order]
+    count = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    count.index_add_(0, slot_r, v_r.to(torch.int32))
+    rank = torch.where(v_r, torch.arange(p.shape[0], device=dev), -1)
     best = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
     best.scatter_reduce_(0, slot_r, rank, reduce="amax")
     has = (best >= 0)[:, None]
@@ -383,20 +388,20 @@ def gather_stochastic_hash(h: StochasticHashMap, position: Tensor,
     base = torch.floor((position - h.origin) / h.cell_size).to(torch.int32)
     accum = torch.zeros(position.shape[:-1] + (3,), dtype=torch.float32,
                         device=dev)
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                off = torch.tensor([dx, dy, dz], dtype=torch.int32,
-                                   device=dev)
-                slot = _hash_cell(base + off, n_slots).long()
-                diff = position - h.position[slot]
-                d2 = dot(diff, diff)
-                cnt = h.count[slot]
-                ok = ((cnt > 0) & (d2 <= radius2)
-                      & (dot(-h.direction[slot], normal) >= 0.0))
-                w = gaussian_kernel_weight(d2, radius2)
-                contrib = h.power[slot] * (w * cnt)[..., None]
-                accum = accum + torch.where(ok[..., None], contrib, 0.0)
+    # the 27 cell offsets (dx, dy, dz), dz slowest, made on the device
+    step = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    oz, oy, ox = torch.meshgrid(step, step, step, indexing="ij")
+    offsets = torch.stack([ox, oy, oz], dim=-1).reshape(27, 3)
+    for off in offsets:
+        slot = _hash_cell(base + off, n_slots).long()
+        diff = position - h.position[slot]
+        d2 = dot(diff, diff)
+        cnt = h.count[slot]
+        ok = ((cnt > 0) & (d2 <= radius2)
+              & (dot(-h.direction[slot], normal) >= 0.0))
+        w = gaussian_kernel_weight(d2, radius2)
+        contrib = h.power[slot] * (w * cnt)[..., None]
+        accum = accum + torch.where(ok[..., None], contrib, 0.0)
     return accum, {}
 
 
@@ -412,7 +417,11 @@ class PhotonKdTree:
     (config.h:18-21): the tree is median-built on the host
     (``native/kdtree_builder.cpp``), as the reference builds it on the
     CPU, and range-queried on the device with a fixed stack. The sorted
-    uniform grid stays the production structure.
+    uniform grid stays the production structure. A kd-tree iteration
+    stays eager on the card: its build reads the photons on the host (the
+    JAX package's host callback) and its gather reads a live-lane flag
+    every ``KD_STEPS_PER_CHECK`` steps, so it is never captured in a CUDA
+    graph (``renderer.py``).
     """
 
     position: Tensor   # [m,3] the photon at each slot (zeros on null slots)

@@ -241,6 +241,16 @@ def test_gather_kernel_on_the_ppm_main_shape(cuda, check_normal):
                                * float(want.abs().max()))
 
 
+def render_counting(r, iterations, wrappers):
+    """(film, launches per wrapper) of ``r.render(iterations)``: the
+    wrappers' own counts (eager iterations: the first of a capture) plus
+    the renderer's graph replays (capture counts x replays)."""
+    before = chip_smoke._launch_counts(r)
+    film = r.render(iterations)
+    after = chip_smoke._launch_counts(r)
+    return film, [after[w.__name__] - before[w.__name__] for w in wrappers]
+
+
 def test_ppm_launch_counts_and_cpu_agreement(cuda):
     cfg = RenderConfig(width=32, height=32, photons_per_iteration=1 << 12,
                        photon_grid_resolution=16,
@@ -249,12 +259,9 @@ def test_ppm_launch_counts_and_cpu_agreement(cuda):
     for dev in ("cpu", cuda):
         scene, cam = get_scene_by_name("CornellSmall", dev)
         r = Renderer(scene, cam, cfg, seed=1)
-        counts = [ik.closest_hit_tris.launches, ik.occluded_tris.launches,
-                  gk.gather_photons_tiled.launches]
-        imgs.append(r.render(2).mean_radiance().cpu().numpy())
-        counts = [w.launches - c for w, c in zip(
-            (ik.closest_hit_tris, ik.occluded_tris,
-             gk.gather_photons_tiled), counts)]
+        film, counts = render_counting(r, 2, (
+            ik.closest_hit_tris, ik.occluded_tris, gk.gather_photons_tiled))
+        imgs.append(film.mean_radiance().cpu().numpy())
         if dev == "cpu":
             assert counts == [0, 0, 0]
     assert counts == [2 * (cfg.max_radiance_trace_depth
@@ -316,9 +323,8 @@ def test_vcm_launch_counts_and_cpu_agreement(cuda):
     for dev in ("cpu", cuda):
         scene, cam = get_scene_by_name("CornellSmall", dev)
         r = Renderer(scene, cam, cfg, seed=1)
-        counts = [w.launches for w in wrappers]
-        imgs.append(r.render(2).mean_radiance().cpu().numpy())
-        counts = [w.launches - c for w, c in zip(wrappers, counts)]
+        film, counts = render_counting(r, 2, wrappers)
+        imgs.append(film.mean_radiance().cpu().numpy())
         if dev == "cpu":
             assert counts == [0, 0, 0]
     assert counts == [2 * (2 * L - 1), 2 * ((L - 1) + L), 2 * L]
@@ -366,12 +372,10 @@ def test_bvh_render_on_the_card_matches_the_cpu_render(cuda):
     imgs = []
     for dev in ("cpu", cuda):
         scene, cam = get_scene_by_name("Atrium:0.1", dev)
-        counts = (bk.traverse.launches, bk.traverse_any.launches,
-                  ik.closest_hit_tris.launches)
-        imgs.append(Renderer(scene, cam, cfg, seed=1).render(
-            2).mean_radiance().cpu().numpy())
-        counts = [w.launches - c for w, c in zip(
-            (bk.traverse, bk.traverse_any, ik.closest_hit_tris), counts)]
+        film, counts = render_counting(
+            Renderer(scene, cam, cfg, seed=1), 2,
+            (bk.traverse, bk.traverse_any, ik.closest_hit_tris))
+        imgs.append(film.mean_radiance().cpu().numpy())
     assert counts == [2 * cfg.pt_max_segments,
                       2 * cfg.pt_max_segments * cfg.pt_shadow_samples, 0]
     assert np.isfinite(imgs[1]).all()
@@ -691,3 +695,86 @@ def test_packet_steps_cluster_rule_and_refusals(cuda):
     shifted.copy_(table)
     with pytest.raises(ValueError, match="16-byte"):
         pk.packet_steps(shifted, o, d, 1)
+
+# ---------------------------------------------------------------------------
+# the captured iteration (renderer.CapturedStep): one CUDA graph a Renderer
+# replays, held against the eager body it captured
+# ---------------------------------------------------------------------------
+
+GRAPH_SIZE = 64
+
+
+def graph_config(method: str) -> RenderConfig:
+    cfg = (chip_smoke.ppm_main_config() if method == "ppm"
+           else RenderConfig())
+    return cfg.replace(width=GRAPH_SIZE, height=GRAPH_SIZE)
+
+
+@pytest.mark.parametrize("method", ["pt", "ppm"])
+def test_graph_film_equals_the_eager_film(cuda, method):
+    """PT and PPM main at 64^2: the film of replays equals the eager body's
+    sums bit for bit, and the wrappers' counters stay still while the
+    replays render (the graph launches the kernels)."""
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    scene, cam = get_scene_by_name("CornellSmall", cuda)
+    r = Renderer(scene, cam, graph_config(method), seed=0)
+    assert r.uses_graph()
+    eager = r._build_fused(eager=True)
+    film = r.render(3)
+    step = r.captured_step
+    assert step.graph is not None and step.replays == 2
+    want, _ = eager(r.camera, 0, r.root_key, 3, 1)
+    assert torch.equal(film.accum, want)
+    counts = [w.launches for w in kernel_wrappers()]
+    film = r.render(2)
+    assert [w.launches for w in kernel_wrappers()] == counts
+    assert step.replays == 4 and r.captured_step is step
+    more, _ = eager(r.camera, 3, r.root_key, 2, 1)
+    assert torch.equal(film.accum, want + more)
+    assert sum(step.capture_launches.values()) > 0
+    # compute_iteration: a replay at the host-scheduled radius
+    got, stats = r.compute_iteration(6)
+    rad, wstats = r._iteration(6, r._radius_sq(6))
+    assert torch.equal(got, rad)
+    for k, v in wstats.items():
+        assert float(stats[k]) == float(torch.sum(v)), k
+
+
+def test_camera_restart_replays_without_recapture(cuda):
+    """A restart with another camera copies it into the captured step's
+    buffers and replays the same graph; another size captures anew."""
+    scene, cam = get_scene_by_name("CornellSmall", cuda)
+    r = Renderer(scene, cam, graph_config("pt"), seed=0)
+    r.render(2)
+    step, graph = r.captured_step, r.captured_step.graph
+    orbited = cam.orbit(*chip_smoke.GRAPH_ORBIT)
+    r.restart(camera=orbited)
+    film = r.render(2)
+    assert r.captured_step is step and step.graph is graph
+    assert step.replays == 3
+    want, _ = r._build_fused(eager=True)(orbited, 0, r.root_key, 2, 1)
+    assert torch.equal(film.accum, want)
+    r.restart(cfg=r.cfg.replace(width=32, height=32))
+    assert r.render(1).accum.shape == (32, 32, 3)
+    assert r.captured_step is not step
+
+
+def test_a_capture_that_reads_a_host_value_raises(cuda):
+    """No fallback: a step that reads a value back to the host renders its
+    eager first iteration, and its capture raises."""
+    scene, cam = get_scene_by_name("CornellSmall", cuda)
+    r = Renderer(scene, cam, RenderConfig(width=32, height=32), seed=0)
+    raw = r._raw_step()
+
+    def reads_the_host(camera, iteration, key, radius_sq):
+        rad, stats = raw(camera, iteration, key, radius_sq)
+        if float(rad.sum()) < 0.0:
+            rad = -rad
+        return rad, stats
+
+    r._raw_step = lambda: reads_the_host
+    with pytest.raises(RuntimeError):
+        r.render(2)
+    assert r.captured_step.graph is None
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
