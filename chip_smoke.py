@@ -121,14 +121,26 @@ and the script exits non-zero without printing the result line:
                  wall) and emission scale (rel 1e-3), PPM kd (the tile
                  gather: B3's zero gradient), VCM kd (L = 4, continuation
                  pinned to 1) and VCM+VM emission scale (the tile merge:
-                 B4's zero gradient), rel 5e-3.
-12b. grad-main - loss and gradient with respect to kd and the emission
-                 scale at 512^2: PT, PPM (1<<20 photons) and VCM (L = 10);
-                 forward + backward seconds and peak memory after one
-                 warm-up. Then three steps of gradient descent (Polyak
-                 step) on the wall's kd toward a target rendered at 0.8 kd
-                 with the same seed, PT 512^2: the loss must fall at every
-                 step.
+                 B4's zero gradient), rel 5e-3; each through the eager
+                 ``diff.render_loss_and_grad`` and through the captured
+                 ``diff.make_sharded_loss_and_grad`` over the rank-less
+                 mesh (a replay of the graph of forward and backward).
+12b. grad-main - the captured gradient: ``make_sharded_loss_and_grad``
+                 over the rank-less mesh with respect to kd and the
+                 emission scale at once, at 512^2: PT, PPM (1<<20 photons)
+                 and VCM (L = 10). A replay against the eager route
+                 (``fn.eager``): bit for bit where two eager calls are,
+                 else within rel 1e-5, the eager calls' own difference
+                 printed; the capture's launches equal an eager call's,
+                 the wrappers' counters still over the replays; forward +
+                 backward seconds in turns (eager, graph, graph, eager; 3
+                 calls a turn), median and spread; capture seconds, the
+                 graph pool's bytes, peak memory of an eager call and of
+                 a replay, and one profiled replay (device busy time, the
+                 costliest operations). Then three steps of gradient
+                 descent (Polyak step) on the wall's kd toward a target
+                 rendered at 0.8 kd with the same seed, PT 512^2 (eager):
+                 the loss must fall at every step.
 13. bvh-goldens - the eight Cornell scenes with a BVH attached, at the golden
                  PT configuration, against the ``*__pt`` goldens at phase
                  4's bar; B5 runs, B1/B2 do not.
@@ -200,15 +212,22 @@ and the script exits non-zero without printing the result line:
                  width, iteration 1, seed 0: PT on CornellSmall 512^2, PPM
                  main with the all-to-all and the all-gather exchange,
                  VCM+VM at vcm-vm-main's configuration, PT on Atrium 512^2.
-                 Each band must equal the unsharded Renderer iteration bit
-                 for bit (VCM+VM: 99.9% of the pixels within rtol 1e-4, the
-                 mean within 1e-5: its t=1 splats add atomically) with the
-                 same kernel launches; sharded and unsharded are timed in
-                 turns. B3 also runs on the partial grids of a 2-way
+                 Three runs: the unsharded Renderer iteration (a replay),
+                 the sharded step's eager route and the captured sharded
+                 step (a replay of one CUDA graph holding the step and its
+                 NCCL collectives). Each sharded band must equal the
+                 unsharded iteration bit for bit (VCM+VM: 99.9% of the
+                 pixels within rtol 1e-4, the mean within 1e-5: its t=1
+                 splats add atomically) with the same kernel launches;
+                 the three are timed in turns (unsharded, eager, graph,
+                 graph, eager, unsharded), with the capture's seconds and
+                 pool bytes. B3 also runs on the partial grids of a 2-way
                  exchange of PPM main's photons, against its plain version.
-21. grad-shard - d mean(image) / d kd through the sharded PT step at 512^2
-                 on the one NCCL rank against the unsharded gradient (rel
-                 5e-3), forward + backward seconds of each.
+21. grad-shard - the sharded gradient on the one NCCL rank at 512^2: PT
+                 d mean(image) / d kd and PPM main (all-to-all) d/demission
+                 scale, the captured gradient (the collectives' backward in
+                 the graph) and its eager route against the unsharded
+                 gradient (rel 5e-3), forward + backward seconds of each.
 22. ranks      - two worker processes (python -m
                  oppositerenderer_tpu_torch.parallel.worker, spawned after
                  the kernels are built) share the card over gloo and run:
@@ -236,10 +255,10 @@ and the script exits non-zero without printing the result line:
                  renders must have launched B1, B2 and B3.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 8b, 11, 12, 15, 16, 18, 19, 19a's graph turns,
-20's sharded timed steps and 22's workers, summed over their ranks; B6's
-over 3a's run of the microbenchmark), errors, times and bounds; the last
-line is
+the main phases (5, 8, 8b, 11, 12, 12b's graph turns, 15, 16, 18, 19,
+19a's graph turns, 20's sharded timed steps, eager and replayed, and 22's
+workers, summed over their ranks; B6's over 3a's run of the
+microbenchmark), errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -315,6 +334,10 @@ MEDIA_STORED_RTOL = 1e-3
 GRAD_PARITY_SIZE = 32
 GRAD_RTOL = {"pt": 1e-3, "ppm": 5e-3, "vcm": 5e-3}
 GRAD_R2 = 0.003
+# grad-main: the captured gradient against its eager route where two
+# eager calls differ (atomic sums in the backward), and calls a timed turn
+GRAD_GRAPH_RTOL = 1e-5
+GRAD_TURN_CALLS = 3
 GRAD_DESCENT_STEPS = 3
 GRAD_TARGET_SCALE = 0.8
 
@@ -2041,9 +2064,28 @@ def loss_and_grad(scene, cam, cfg, param: str, seed: int = 0):
     return float(loss), grads[(param, 0)].detach().cpu().double()
 
 
+def grad_parity_fn(scene, cam, cfg, param: str, mesh):
+    """The captured gradient of :func:`loss_and_grad`'s loss on ``mesh``
+    (``diff.make_sharded_loss_and_grad``, one rank: the mean image of
+    iteration 0 at GRAD_R2, seed 0)."""
+    from oppositerenderer_tpu_torch import diff
+    start = scene.materials.kd[0] if param == "kd" else 1.0
+    return diff.make_sharded_loss_and_grad(scene, cam, cfg, mesh,
+                                           {(param, 0): start})
+
+
+def grad_args() -> dict:
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    return dict(iteration=0, key=make_root_key(0), radius_sq=GRAD_R2)
+
+
 def phase_grad_parity(dev) -> None:
-    """Gradients of 32^2 iterations on the card against the CPU port's."""
+    """Gradients of 32^2 iterations on the card against the CPU port's:
+    the eager ``render_loss_and_grad`` and the captured sharded gradient
+    over the rank-less mesh (a replay), each at the case's bar."""
+    from oppositerenderer_tpu_torch.parallel import make_mesh
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    mesh = make_mesh(1, device=dev)
     for label, tol, cfg, param in grad_parity_cases():
         out = []
         for d in (dev, torch.device("cpu")):
@@ -2051,45 +2093,171 @@ def phase_grad_parity(dev) -> None:
             out.append(loss_and_grad(scene, cam, cfg, param))
         (lc, gc), (lh, gh) = out
         rel = float(((gc - gh).abs() / gh.abs()).max())
+        scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+        fn = grad_parity_fn(scene, cam, cfg, param, mesh)
+        fn(**grad_args())                       # eager, then the capture
+        lr, gr = fn(**grad_args())              # a replay
+        gr = gr[(param, 0)].double().cpu()
+        rel_graph = float(((gr - gh).abs() / gh.abs()).max())
+        if fn.captured is None or fn.captured.replays != 1:
+            raise AssertionError(f"{label}: the gradient was not replayed")
         print(f"[grad-parity] {label} {GRAD_PARITY_SIZE}^2: loss card "
               f"{lc:.7g} CPU {lh:.7g}; gradient card {gc.tolist()} CPU "
-              f"{gh.tolist()}: max rel err {rel:.3g} (bound "
-              f"{GRAD_RTOL[tol]})")
+              f"{gh.tolist()}: max rel err {rel:.3g}; captured on the card "
+              f"(a replay) loss {float(lr):.7g}, gradient {gr.tolist()}: "
+              f"max rel err {rel_graph:.3g} (bound {GRAD_RTOL[tol]})")
         if (not bool(torch.isfinite(gc).all()) or not bool((gh > 0).all())
-                or rel > GRAD_RTOL[tol]):
+                or max(rel, rel_graph) > GRAD_RTOL[tol]):
             raise AssertionError(f"{label} gradient on the card differs "
                                  "from the CPU port's")
 
 
-def phase_grad_main(dev) -> None:
-    """Loss and gradient at full width: forward plus backward seconds and
-    peak memory (one warm-up, then one timed run), and three steps of
-    gradient descent on the wall's kd toward a target rendered at 0.8 kd
-    with the same seed (PT 512^2)."""
+def grads_rel(got, want) -> float:
+    """Largest relative difference of (loss, grads) ``got`` from
+    ``want`` over the loss and every gradient element."""
+    pairs = [(got[0], want[0])] + [(got[1][k], v) for k, v in
+                                   want[1].items()]
+    return max(float(((a.double() - b.double()).abs()
+                      / b.double().abs().clamp_min(1e-30)).max())
+               for a, b in pairs)
+
+
+def grads_equal(got, want) -> bool:
+    return torch.equal(got[0], want[0]) and all(
+        torch.equal(got[1][k], v) for k, v in want[1].items())
+
+
+def phase_grad_main(dev) -> dict:
+    """The captured gradient at full width (PT, PPM main and VCM main at
+    512^2, d/dkd and d/demission_scale in one call) over the rank-less
+    mesh, against its eager route (``fn.eager``, the graph's plain
+    version): loss and gradients bit for bit where two eager calls are,
+    else within GRAD_GRAPH_RTOL beside the eager calls' own difference;
+    launches per call equal; forward + backward seconds in turns (eager,
+    graph, graph, eager; GRAD_TURN_CALLS calls a turn), capture seconds,
+    the graph pool's bytes, peak memory of a replay and of an eager call,
+    and one replay under torch.profiler (device busy time, the costliest
+    operations). Then three steps of gradient descent on the wall's kd
+    toward a target rendered at 0.8 kd with the same seed (PT 512^2,
+    eager). Returns the replays' launches (the graph turns)."""
     from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
     from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.parallel import make_mesh
     from oppositerenderer_tpu_torch.renderer import Renderer
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
     scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    mesh = make_mesh(1, device=dev)
+    wrappers = kernel_wrappers()
+    launches = {w.__name__: 0 for w in wrappers}
+    card = card_line()
+    rows = []
     cases = (("PT", RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)),
              ("PPM", ppm_main_config()), ("VCM", vcm_main_config()))
     for label, cfg in cases:
-        for param in ("kd", "emission_scale"):
-            loss_and_grad(scene, cam, cfg, param)      # warm-up
+        wrt = {("kd", 0): scene.materials.kd[0],
+               ("emission_scale", 0): 1.0}
+        fn = diff.make_sharded_loss_and_grad(scene, cam, cfg, mesh, wrt)
+        step = fn.captured
+        if step is None:
+            raise AssertionError(f"grad-main {label}: no graph route")
+        fn(**grad_args())                        # eager, then the capture
+        # the eager route twice: its launches a call, its repeatability,
+        # its peak
+        before = [w.launches for w in wrappers]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        e1 = fn.eager(**grad_args())
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated(dev)
+        e2 = fn.eager(**grad_args())
+        torch.cuda.synchronize()
+        eager_counts = {w.__name__: (w.launches - b) // 2
+                        for w, b in zip(wrappers, before)}
+        if step.capture_launches != eager_counts:
+            raise AssertionError(f"grad-main {label}: the capture launches "
+                                 f"{step.capture_launches}, an eager call "
+                                 f"{eager_counts}")
+        counts = [w.launches for w in wrappers]
+        replays = step.replays
+        torch.cuda.reset_peak_memory_stats(dev)
+        g = fn(**grad_args())
+        torch.cuda.synchronize()
+        replay_peak = torch.cuda.max_memory_allocated(dev)
+        # equality: the eager calls' own difference first
+        eager_bits = grads_equal(e1, e2)
+        eager_rel = grads_rel(e2, e1)
+        rel = grads_rel(g, e1)
+        if eager_bits and not grads_equal(g, e1):
+            raise AssertionError(f"grad-main {label}: the replay differs "
+                                 f"from the eager route (max rel {rel:.3g}),"
+                                 " which repeats bit for bit")
+        if rel > GRAD_GRAPH_RTOL:
+            raise AssertionError(f"grad-main {label}: the replay is off the "
+                                 f"eager route by {rel:.3g} (eager calls "
+                                 f"{eager_rel:.3g})")
+        found = ("equal bit for bit" if grads_equal(g, e1) else
+                 f"max rel {rel:.3g} (two eager calls: {eager_rel:.3g})")
+        # timing in turns
+        times = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            call = fn.eager if kind == "eager" else fn
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
-            loss, g = loss_and_grad(scene, cam, cfg, param)
+            for _ in range(GRAD_TURN_CALLS):
+                out = call(**grad_args())
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated(dev)
-            print(f"[grad-main] {label} {MAIN_SIZE}^2 d/d{param}: "
-                  f"loss {loss:.6g}, gradient {g.tolist()}; forward + "
-                  f"backward {dt:.3f} s, peak memory {peak / 2 ** 30:.3f} "
-                  "GiB")
-            if not bool(torch.isfinite(g).all()) or not bool((g > 0).all()):
-                raise AssertionError(f"{label}: gradient not finite and "
-                                     "positive")
+            times[kind].append((time.perf_counter() - t0) / GRAD_TURN_CALLS)
+        if [w.launches for w in wrappers] != [
+                c + 2 * GRAD_TURN_CALLS * eager_counts[w.__name__]
+                for c, w in zip(counts, wrappers)]:
+            raise AssertionError(f"grad-main {label}: a wrapper was called "
+                                 "during the replays")
+        # where a replay's time goes: the device alone
+        prof = profile_iteration(None, f"grad-main {label} replay",
+                                 lambda: fn(**grad_args()), host=False)
+        n_replays = step.replays - replays
+        for k, c in step.capture_launches.items():
+            launches[k] += c * n_replays
+        loss, grads = out
+        kd_g, em_g = (grads[k].double().cpu() for k in wrt)
+        if (not bool(torch.isfinite(kd_g).all()) or not bool((kd_g > 0).all())
+                or not float(em_g) > 0):
+            raise AssertionError(f"{label}: gradient not finite and "
+                                 "positive")
+        eager_s, graph_s = (statistics.median(times[k])
+                            for k in ("eager", "graph"))
+        spread = {k: (max(v) - min(v)) / statistics.median(v)
+                  for k, v in times.items()}
+        launched = {k: c for k, c in step.capture_launches.items() if c}
+        print(f"[grad-main] {label} {MAIN_SIZE}^2 d/dkd, d/demission_scale "
+              f"over the rank-less mesh: loss {float(loss):.6g}, gradients "
+              f"{kd_g.tolist()}, {float(em_g):.6g}; the replay against the "
+              f"eager route: {found}; launches a call {launched}, equal; "
+              f"forward + backward s in turns (eager, graph, graph, eager, "
+              f"{GRAD_TURN_CALLS} calls a turn): eager {eager_s:.4f} "
+              f"({', '.join(f'{t:.4f}' for t in times['eager'])}; spread "
+              f"{spread['eager']:.4f}), graph {graph_s:.4f} "
+              f"({', '.join(f'{t:.4f}' for t in times['graph'])}; spread "
+              f"{spread['graph']:.4f}), {eager_s / graph_s:.3f}x; capture "
+              f"{step.capture_seconds:.3f} s, pool {step.pool_bytes} bytes; "
+              f"peak memory eager {eager_peak / 2 ** 30:.3f} GiB, replay "
+              f"{replay_peak / 2 ** 30:.3f} GiB besides the pool; device "
+              f"busy over a profiled replay {prof['busy_ms']:.3f} ms "
+              f"({prof['operations']} operations, idle {prof['idle']:.4f});"
+              f" {card}")
+        rows.append({"cell": label, "eager_s": eager_s, "graph_s": graph_s,
+                     "spread": spread, "capture_s": step.capture_seconds,
+                     "pool_bytes": step.pool_bytes,
+                     "eager_peak_bytes": eager_peak,
+                     "replay_peak_bytes": replay_peak,
+                     "bit_for_bit": grads_equal(g, e1), "rel": rel,
+                     "eager_rel": eager_rel, "busy_ms": prof["busy_ms"],
+                     "idle": prof["idle"]})
+        step.release()
+        del fn, step, e1, e2, g, out
+        torch.cuda.empty_cache()
+    print(f"[grad-main] {json.dumps(rows)}")
 
     # gradient descent with the Polyak step (the loss's minimum is 0: the
     # target is the same render at the target kd)
@@ -2117,6 +2285,7 @@ def phase_grad_main(dev) -> None:
     if not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"gradient descent did not lower the loss at "
                              f"every step: {losses}")
+    return launches
 
 
 def phase_vcm_goldens(dev) -> None:
@@ -2991,11 +3160,15 @@ def partial_grid_b3(dev, call) -> float:
 def phase_shard_main(dev, mesh) -> tuple[dict, float]:
     """The sharded step over a one-rank NCCL mesh at full width: PT,
     PPM main with each exchange, VCM+VM and Atrium PT, iteration
-    SHARD_ITERATION, seed 0. Each band must equal the unsharded Renderer
-    iteration (bit for bit; VCM at SHARD_PIXEL_RTOL, its atomic splats),
-    with the same kernel launches; then both are timed in turns. Returns
-    the sharded timed runs' launches and B3's largest |err| on partial
-    grids (:func:`partial_grid_b3`)."""
+    SHARD_ITERATION, seed 0, as three runs: the unsharded Renderer
+    iteration (a replay), the sharded step's eager route (``fn.eager``)
+    and the captured sharded step (a replay of the graph that holds the
+    step and its NCCL collectives). Each sharded band must equal the
+    unsharded iteration (bit for bit; VCM at SHARD_PIXEL_RTOL, its atomic
+    splats), with the same kernel launches; then the three are timed in
+    turns. Returns the sharded timed runs' launches (eager and replays)
+    and B3's largest |err| on partial grids (:func:`partial_grid_b3`)."""
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
     from oppositerenderer_tpu_torch.config import PhotonExchange, RenderConfig
     from oppositerenderer_tpu_torch.parallel import exchange as xch
     from oppositerenderer_tpu_torch.parallel import make_sharded_render_fn
@@ -3010,9 +3183,12 @@ def phase_shard_main(dev, mesh) -> tuple[dict, float]:
              ("VCM+VM", MAIN_SCENE, vcm_main_config(True), False),
              ("Atrium PT", "Atrium", RenderConfig(width=ATRIUM_SIZE,
                                                   height=ATRIUM_SIZE), True)]
+    wrappers = kernel_wrappers()
+    card = card_line()
     total = {k: 0 for k in KERNELS}
     b3_err = 0.0
     scenes = {}
+    rows = []
     for label, name, cfg, bits in cases:
         if name not in scenes:
             scenes[name] = get_scene_by_name(name, dev)
@@ -3020,6 +3196,10 @@ def phase_shard_main(dev, mesh) -> tuple[dict, float]:
         r = Renderer(scene, cam, cfg, seed=0)
         it = SHARD_ITERATION
         step = make_sharded_render_fn(scene, cam, cfg, mesh)
+        captured = step.captured
+        if captured is None:
+            raise AssertionError(f"shard-main {label}: the sharded step "
+                                 f"over {mesh.backend} takes no graph")
         calls = []
         gather = xch.gather_photons_tiled
 
@@ -3027,115 +3207,185 @@ def phase_shard_main(dev, mesh) -> tuple[dict, float]:
             calls.append(args + (kw["u_rows"], kw["valid"]))
             return gather(*args, **kw)
 
+        args = (it, r.root_key, r._radius_sq(it))
         runs = {"unsharded": lambda: r.compute_iteration(it)[0],
-                "sharded": lambda: _scrubbed(step(it, r.root_key,
-                                                  r._radius_sq(it))[0])}
+                "eager": lambda: _scrubbed(step.eager(*args)[0]),
+                "graph": lambda: _scrubbed(step(*args)[0])}
+
+        def replayed():
+            """Launches of the graph replays so far: the Renderer's and
+            the captured sharded step's."""
+            out = r.kernel_launches()
+            for k, c in captured.launches().items():
+                out[k] = out.get(k, 0) + c
+            return out
+
         images, counts = {}, {}
         for kind, fn in runs.items():
-            fn()                                    # warm-up
+            fn()                         # warm-up (and the captures)
             torch.cuda.synchronize()
             _reset_launches()
-            graph_before = r.kernel_launches()
-            if kind == "sharded" and label == "PPM all-to-all":
+            before = replayed()
+            if kind == "eager" and label == "PPM all-to-all":
                 xch.gather_photons_tiled = record
             try:
                 images[kind] = fn().reshape(cfg.height, cfg.width, 3)
             finally:
                 xch.gather_photons_tiled = gather
             torch.cuda.synchronize()
-            counts[kind] = _launch_counts(r, graph_before)
-        if counts["sharded"] != counts["unsharded"]:
-            raise AssertionError(f"shard-main {label}: sharded launches "
-                                 f"{counts['sharded']}, unsharded "
-                                 f"{counts['unsharded']}")
-        got, want = (images[k].double() for k in ("sharded", "unsharded"))
-        if not bool(torch.isfinite(got).all()) or float(got.mean()) <= 0:
-            raise AssertionError(f"shard-main {label}: band not finite and "
-                                 "positive")
-        agree = float(torch.isclose(got, want, rtol=SHARD_PIXEL_RTOL,
-                                    atol=0.0).all(dim=-1).double().mean())
-        mean_rel = abs(float(got.mean() / want.mean()) - 1.0)
-        equal = torch.equal(images["sharded"], images["unsharded"])
-        if bits and not equal:
-            raise AssertionError(f"shard-main {label}: sharded band differs "
-                                 f"from the unsharded iteration ({agree:.6f} "
-                                 f"of the pixels within {SHARD_PIXEL_RTOL})")
-        if not bits and (agree < SHARD_MIN_AGREEING
-                         or mean_rel > SHARD_MEAN_RTOL):
-            raise AssertionError(f"shard-main {label}: {agree:.6f} of the "
-                                 f"pixels agree, mean off by {mean_rel:.2e}")
+            after = replayed()
+            counts[kind] = {w.__name__: w.launches + after.get(w.__name__, 0)
+                            - before.get(w.__name__, 0) for w in wrappers}
+        if captured.graph is None or captured.capture_launches != {
+                k: c for k, c in counts["eager"].items()}:
+            raise AssertionError(f"shard-main {label}: the capture launches "
+                                 f"{captured.capture_launches}, the eager "
+                                 f"step {counts['eager']}")
+        found = {}
+        for kind in ("eager", "graph"):
+            if counts[kind] != counts["unsharded"]:
+                raise AssertionError(f"shard-main {label}: {kind} sharded "
+                                     f"launches {counts[kind]}, unsharded "
+                                     f"{counts['unsharded']}")
+            got, want = (images[k].double() for k in (kind, "unsharded"))
+            if not bool(torch.isfinite(got).all()) or float(got.mean()) <= 0:
+                raise AssertionError(f"shard-main {label}: {kind} band not "
+                                     "finite and positive")
+            agree = float(torch.isclose(got, want, rtol=SHARD_PIXEL_RTOL,
+                                        atol=0.0).all(dim=-1).double()
+                          .mean())
+            mean_rel = abs(float(got.mean() / want.mean()) - 1.0)
+            equal = torch.equal(images[kind], images["unsharded"])
+            if bits and not equal:
+                raise AssertionError(
+                    f"shard-main {label}: the {kind} sharded band differs "
+                    f"from the unsharded iteration ({agree:.6f} of the "
+                    f"pixels within {SHARD_PIXEL_RTOL})")
+            if not bits and (agree < SHARD_MIN_AGREEING
+                             or mean_rel > SHARD_MEAN_RTOL):
+                raise AssertionError(f"shard-main {label}: {kind}: "
+                                     f"{agree:.6f} of the pixels agree, "
+                                     f"mean off by {mean_rel:.2e}")
+            found[kind] = ("equal bit for bit" if equal else
+                           f"{agree:.6f} of the pixels within rtol "
+                           f"{SHARD_PIXEL_RTOL}, mean off by "
+                           f"{mean_rel:.2e}")
         n = SHARD_TIMING_ITERS[label.split(" ")[0] if label.startswith("PPM")
                                else label]
-        times = {"unsharded": [], "sharded": []}
-        for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+        times = {k: [] for k in runs}
+        for kind in ("unsharded", "eager", "graph", "graph", "eager",
+                     "unsharded"):
             _reset_launches()
+            before = replayed()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(n):
                 runs[kind]()
             torch.cuda.synchronize()
             times[kind].append((time.perf_counter() - t0) / n * 1e3)
-            if kind == "sharded":
-                for k, c in _launch_counts().items():
-                    if c != n * counts["sharded"][k]:
-                        raise AssertionError(f"shard-main {label}: {k} "
-                                             f"launched {c} times in {n} "
-                                             "steps")
-                    total[k] += c
-        launched = {k: c for k, c in counts["sharded"].items() if c}
-        print(f"[shard-main] {label} {name} {cfg.width}^2: sharded band "
-              f"{'equal bit for bit' if equal else 'not bit-equal'} to the "
-              f"unsharded iteration ({agree:.6f} of the pixels within "
-              f"rtol {SHARD_PIXEL_RTOL}, mean off by {mean_rel:.2e}); "
-              f"launches an iteration {launched}, equal; ms/iter in turns "
-              f"(unsharded, sharded, sharded, unsharded, {n} iterations a "
-              f"turn): unsharded {statistics.mean(times['unsharded']):.3f} "
-              f"({', '.join(f'{t:.3f}' for t in times['unsharded'])}), "
-              f"sharded {statistics.mean(times['sharded']):.3f} "
-              f"({', '.join(f'{t:.3f}' for t in times['sharded'])})")
+            if kind == "unsharded":
+                continue
+            after = replayed()
+            for w in wrappers:
+                k = w.__name__
+                c = w.launches + after.get(k, 0) - before.get(k, 0)
+                if kind == "graph" and w.launches:
+                    raise AssertionError(f"shard-main {label}: {k} was "
+                                         "called during the replays")
+                if c != n * counts[kind][k]:
+                    raise AssertionError(f"shard-main {label}: {k} "
+                                         f"launched {c} times in {n} "
+                                         f"{kind} steps")
+                total[k] += c
+        launched = {k: c for k, c in counts["graph"].items() if c}
+        ms = {k: statistics.median(v) for k, v in times.items()}
+
+        def turns(ts):
+            return ", ".join(f"{t:.3f}" for t in ts)
+        spread = {k: (max(v) - min(v)) / ms[k] for k, v in times.items()}
+        print(f"[shard-main] {label} {name} {cfg.width}^2 over "
+              f"{mesh.size} {mesh.backend} rank: eager sharded band "
+              f"{found['eager']}, captured sharded band {found['graph']} "
+              f"against the unsharded iteration; launches an iteration "
+              f"{launched}, equal in the three; ms/iter in turns "
+              f"(unsharded, eager, graph, graph, eager, unsharded; {n} "
+              f"iterations a turn): "
+              + "; ".join(f"{k} {ms[k]:.3f} ({turns(times[k])}; spread "
+                          f"{spread[k]:.4f})" for k in runs)
+              + f"; eager / graph {ms['eager'] / ms['graph']:.3f}x; "
+              f"capture {captured.capture_seconds:.3f} s, pool "
+              f"{captured.pool_bytes} bytes; {card}")
+        rows.append({"cell": label, "ms": ms, "spread": spread,
+                     "capture_s": captured.capture_seconds,
+                     "pool_bytes": captured.pool_bytes})
         if calls:
             b3_err = max(b3_err, partial_grid_b3(dev, calls[0]))
+        captured.release()
+        del r, step, captured
+        torch.cuda.empty_cache()
+    print(f"[shard-main] {json.dumps(rows)}")
     return total, b3_err
 
 
 def phase_grad_shard(dev, mesh) -> None:
-    """d mean(image) / d kd of material 0 through the sharded PT step at
-    512^2 over the one-rank NCCL mesh, against the unsharded gradient
-    (rel GRAD_SHARD_RTOL): one warm-up, then the seconds of each."""
+    """The sharded gradient over the one-rank NCCL mesh at 512^2: PT
+    d mean(image) / d kd of material 0, and PPM main with the all-to-all
+    exchange d/demission_scale (the collectives' backward in the graph).
+    The captured gradient (a replay) and its eager route
+    (``fn.eager``) against the unsharded gradient (rel GRAD_SHARD_RTOL):
+    one warm-up each, then the seconds of one call each."""
     from oppositerenderer_tpu_torch import diff
     from oppositerenderer_tpu_torch.config import RenderConfig
     from oppositerenderer_tpu_torch.core.rng import make_root_key
-    from oppositerenderer_tpu_torch.integrators import pt
+    from oppositerenderer_tpu_torch.integrators import ppm, pt
     from oppositerenderer_tpu_torch.scene import get_scene_by_name
     scene, cam = get_scene_by_name(MAIN_SCENE, dev)
-    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)
-    wrt = {("kd", 0): scene.materials.kd[0]}
     key = make_root_key(0)
-    sharded = diff.make_sharded_loss_and_grad(scene, cam, cfg, mesh, wrt)
-    runs = {"sharded": lambda: sharded(iteration=0, key=key),
-            "unsharded": lambda: diff.render_loss_and_grad(
-                lambda s: pt.render_iteration(s, cam, cfg, 0, key), scene,
-                wrt)}
-    out = {}
-    for kind, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, grads = fn()
-        torch.cuda.synchronize()
-        out[kind] = (float(loss), grads[("kd", 0)].double().cpu(),
-                     time.perf_counter() - t0)
-    (ls, gs, ts), (lu, gu, tu) = out["sharded"], out["unsharded"]
-    rel = float(((gs - gu).abs() / gu.abs()).max())
-    print(f"[grad-shard] PT {MAIN_SIZE}^2 d/dkd over {mesh.size} "
-          f"{mesh.backend} rank: loss "
-          f"{ls:.7g} (unsharded {lu:.7g}), gradient {gs.tolist()} "
-          f"(unsharded {gu.tolist()}): max rel err {rel:.3g} (bound "
-          f"{GRAD_SHARD_RTOL}); forward + backward {ts:.3f} s sharded, "
-          f"{tu:.3f} s unsharded")
-    if rel > GRAD_SHARD_RTOL or not bool((gs > 0).all()):
-        raise AssertionError("the sharded gradient differs from the "
-                             "unsharded one")
+    card = card_line()
+    cases = (("PT", RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE), "kd",
+              lambda s, cfg: pt.render_iteration(s, cam, cfg, 0, key)),
+             ("PPM all-to-all", ppm_main_config(), "emission_scale",
+              lambda s, cfg: ppm.render_iteration(s, cam, cfg, 0, key,
+                                                  GRAD_R2)[0]))
+    for label, cfg, param, render in cases:
+        wrt = {(param, 0): scene.materials.kd[0] if param == "kd" else 1.0}
+        sharded = diff.make_sharded_loss_and_grad(scene, cam, cfg, mesh, wrt)
+        args = dict(iteration=0, key=key, radius_sq=GRAD_R2)
+        runs = {"graph": lambda: sharded(**args),
+                "eager": lambda: sharded.eager(**args),
+                "unsharded": lambda: diff.render_loss_and_grad(
+                    lambda s: render(s, cfg), scene, wrt)}
+        out = {}
+        for kind, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = fn()
+            torch.cuda.synchronize()
+            out[kind] = (float(loss), grads[(param, 0)].double().cpu(),
+                         time.perf_counter() - t0)
+        if sharded.captured is None or sharded.captured.replays != 1:
+            raise AssertionError(f"grad-shard {label}: the gradient over "
+                                 f"{mesh.backend} was not replayed")
+        lu, gu, tu = out["unsharded"]
+        rel = {k: float(((out[k][1] - gu).abs() / gu.abs()).max())
+               for k in ("graph", "eager")}
+        print(f"[grad-shard] {label} {MAIN_SIZE}^2 d/d{param} over "
+              f"{mesh.size} {mesh.backend} rank: loss captured "
+              f"{out['graph'][0]:.7g}, eager {out['eager'][0]:.7g} "
+              f"(unsharded {lu:.7g}); gradient captured "
+              f"{out['graph'][1].tolist()}, eager {out['eager'][1].tolist()}"
+              f" (unsharded {gu.tolist()}): max rel err captured "
+              f"{rel['graph']:.3g}, eager {rel['eager']:.3g} (bound "
+              f"{GRAD_SHARD_RTOL}); forward + backward {out['graph'][2]:.4f}"
+              f" s captured, {out['eager'][2]:.4f} s eager, {tu:.4f} s "
+              f"unsharded; capture {sharded.captured.capture_seconds:.3f} s,"
+              f" pool {sharded.captured.pool_bytes} bytes; {card}")
+        if max(rel.values()) > GRAD_SHARD_RTOL or not bool(
+                (out["graph"][1] > 0).all()):
+            raise AssertionError(f"grad-shard {label}: the sharded gradient "
+                                 "differs from the unsharded one")
+        sharded.captured.release()
 
 
 def ranks_cases() -> list[dict]:
@@ -3850,7 +4100,8 @@ def main() -> int:
         for k, c in phase_vcm_main(dev, use_vm).items():
             launches[k] += c
     timed("grad-parity", phase_grad_parity, dev)
-    timed("grad-main", phase_grad_main, dev)
+    for k, c in timed("grad-main", phase_grad_main, dev).items():
+        launches[k] += c
     timed("bvh-goldens", phase_goldens, dev, True)
     timed("bvh-parity", phase_bvh_parity, dev)
     for tag, scene_name, size, iters in (

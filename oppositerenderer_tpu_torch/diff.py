@@ -83,39 +83,89 @@ def make_sharded_loss_and_grad(scene: Scene, camera, cfg, mesh, wrt:
 
     Each rank builds the scene from the parameters (``wrt`` maps (field,
     material_idx) to an initial value, as in :func:`render_loss_and_grad`;
-    ``values`` replaces them in key order), renders its band
+    ``values`` replaces them in key order, each of its initial value's
+    shape), renders its band
     (``parallel.render.make_sharded_render_raw``), takes ``loss_local =
     band.sum() / (H W 3)`` and back-propagates it: each collective's
     backward carries the cotangents of the other ranks' bands to the
     values this rank contributed (the store, the photons, the splats).
     One ``psum`` then sums the losses and every parameter's gradient over
-    ranks. ``key`` None is the root key of seed 0."""
+    ranks. ``key`` None is the root key of seed 0; the iteration, key and
+    radius may be tensors (``make_sharded_render_raw``).
+
+    JAX jits this ``value_and_grad``. Where ``parallel.render.uses_graph``
+    holds (a CUDA scene over a rank-less or NCCL mesh) the first call runs
+    it eagerly, which also runs the autograd engine's first backward, and
+    captures forward, backward and ``psum`` in one CUDA graph; a later
+    call copies ``values`` into the graph's leaf tensors (which require
+    grad), writes the iteration, key and radius into its operands
+    (``parallel.render.StepOperands``) and replays. Either way the loss
+    and gradients are new tensors that a later call leaves alone, as
+    JAX's are new arrays. ``fn.captured`` is the ``capture.CapturedCall``
+    (None on the eager route); on the graph route ``fn.eager`` is the
+    eager route, the graph's plain version."""
+    from .accel.intersect import dense_tables
+    from .capture import CapturedCall, set_operand
     from .core.rng import make_root_key
-    from .parallel.render import make_sharded_render_raw
+    from .parallel.render import (StepOperands, make_sharded_render_raw,
+                                  uses_graph)
     raw = make_sharded_render_raw(scene, camera, cfg, mesh)
     keys = list(wrt)
     dev = scene.device
     n_values = 3 * cfg.width * cfg.height
+    if scene.bvh is None:
+        # the dense route's triangle tables, built once here and carried
+        # into each call's scene by _with_materials: B2's holds only the
+        # non-emitters, a size a capture cannot read from the device
+        dense_tables(scene)
 
-    def fn(values=None, iteration=0, key=None, radius_sq=0.002):
-        vals = [wrt[k] for k in keys] if values is None else values
-        vals = [torch.as_tensor(v, dtype=torch.float32, device=dev)
-                .detach().clone().requires_grad_(True) for v in vals]
-        band, _ = raw(_with_values(scene, keys, vals), iteration,
-                      make_root_key(0) if key is None else key, radius_sq)
+    def leaves(values):
+        return [torch.as_tensor(v, dtype=torch.float32, device=dev)
+                .detach().clone().requires_grad_(True) for v in values]
+
+    def summed(vals, iteration, key, radius_sq):
+        """[loss, every gradient flattened], summed over ranks."""
+        band, _ = raw(_with_values(scene, keys, vals), iteration, key,
+                      radius_sq)
         loss_local = band.sum() / n_values
         grads = torch.autograd.grad(loss_local, vals, allow_unused=True)
         flat = torch.cat([loss_local.detach().reshape(1)] + [
             (torch.zeros_like(v) if g is None else g).reshape(-1)
             for v, g in zip(vals, grads)])
-        total = mesh.psum(flat)
+        return mesh.psum(flat)
+
+    def unpack(total, vals):
         out, i = {}, 1
         for k, v in zip(keys, vals):
             out[k] = total[i:i + v.numel()].reshape(v.shape)
             i += v.numel()
         return total[0], out
 
-    return fn
+    initial = [wrt[k] for k in keys]
+
+    def eager(values=None, iteration=0, key=None, radius_sq=0.002):
+        vals = leaves(initial if values is None else values)
+        return unpack(summed(vals, iteration, make_root_key(0)
+                             if key is None else key, radius_sq), vals)
+    if not uses_graph(scene, mesh):
+        eager.captured = None
+        return eager
+
+    static = leaves(initial)
+    ops = StepOperands(dev)
+    captured = CapturedCall(lambda: summed(static, ops.iteration, ops.key,
+                                           ops.radius_sq), dev)
+
+    def replay(values=None, iteration=0, key=None, radius_sq=0.002):
+        with torch.no_grad():
+            for leaf, v in zip(static, initial if values is None
+                               else values):
+                set_operand(leaf, v)
+        ops.set(iteration, make_root_key(0) if key is None else key,
+                radius_sq)
+        return unpack(captured.run().clone(), static)
+    replay.captured, replay.eager = captured, eager
+    return replay
 
 
 def render_loss_and_grad(render_fn: Callable[[Scene], torch.Tensor],

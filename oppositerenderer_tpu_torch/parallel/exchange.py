@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..accel.gather_kernels import (ROWS, TILE, gather_photons_tiled,
-                                    tile_block_order)
+                                    tile_block_order_on)
 from ..core.rng import _lowbias32
 from ..photon_map import (PhotonBatch, PhotonGrid, build_photon_grid,
                           cell_coords, cell_index_1d, gather_photons,
@@ -103,9 +103,10 @@ def bucket_photons_by_owner(photons: PhotonBatch, origin: torch.Tensor,
     starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
     ks = torch.arange(cap, dtype=torch.int64, device=dev)[None, :]
     # count / cap as XLA computes a division by a constant: times the
-    # float32 reciprocal
+    # float32 reciprocal (cap set by a fill: no host-to-device copy)
     share = counts.to(torch.float32) * (
-        torch.ones((), device=dev) / torch.tensor(float(cap), device=dev))
+        torch.ones((), device=dev)
+        / torch.full((), float(cap), dtype=torch.float32, device=dev))
     # over-capacity groups: stride count / cap at phase u; the others
     # pick the identity (floor(k + u) = k for u < 1)
     stride = torch.clamp_min(share, 1.0)
@@ -172,9 +173,7 @@ def sharded_gather(grid: PhotonGrid, q_position: torch.Tensor,
     if tiled_wh is not None:
         W, H = tiled_wh
         n = W * H
-        perm, inv = (torch.as_tensor(a, dtype=torch.int64,
-                                     device=q_pos.device)
-                     for a in tile_block_order(W, H))
+        perm, inv = tile_block_order_on(W, H, q_pos.device)
         valid = None if q_valid is None else mesh.all_gather(q_valid)[perm]
         acc_b, stats = gather_photons_tiled(
             grid, q_pos[perm], q_nrm[perm], radius,

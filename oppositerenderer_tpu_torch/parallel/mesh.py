@@ -31,7 +31,9 @@ Transport: NCCL takes device tensors; gloo is a host transport, so a
 gloo mesh copies each operand to the host and the result back to the
 operand's device, explicitly and in one place (:meth:`Mesh._send`). A
 one-rank mesh without a process group has identity collectives: it is
-JAX's ``make_mesh(1)``.
+JAX's ``make_mesh(1)``. The rank-less and NCCL meshes are
+:attr:`Mesh.capturable`: a CUDA graph holds their collectives, forward
+and backward, so the sharded step and gradient run as graphs there.
 """
 from __future__ import annotations
 
@@ -90,6 +92,17 @@ class Mesh:
     size: int
     device: torch.device
     backend: str | None
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: the
+        rank-less mesh's are identities, and NCCL runs a CUDA rank's on
+        the device, on the capturing stream (the communicator must exist
+        before the capture: an eager call first creates it). gloo copies
+        every operand to the host (:meth:`_send`), which a capture
+        refuses."""
+        return self.group is None or (self.backend == "nccl"
+                                      and self.device.type == "cuda")
 
     def band(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous block of dim 0 (``x.shape[0] / size``

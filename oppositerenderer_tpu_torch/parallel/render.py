@@ -29,6 +29,13 @@ unsharded streams. A step returns this rank's band [H/D, W, 3] as a local
 tensor (JAX returns one global array sharded over the mesh;
 :func:`gather_image` assembles the whole image) and its stats summed over
 ranks (the ``avg_*`` means averaged).
+
+JAX jits the step, collectives included. On a CUDA scene over a mesh
+whose collectives stay on the device (:func:`uses_graph`: rank-less or
+NCCL) :func:`make_sharded_render_fn` captures it in one CUDA graph
+(``capture.CapturedCall``) whose operands, the iteration, the key's
+words and the radius, are device buffers (:class:`StepOperands`); gloo
+meshes and the CPU run the same body eagerly.
 """
 from __future__ import annotations
 
@@ -39,8 +46,10 @@ import torch
 
 from ..accel.gather_kernels import BLOCK, TILE
 from ..camera import Camera
+from ..capture import CapturedCall, set_operand
 from ..config import PhotonExchange, RenderConfig, RenderMethod
-from ..core.rng import LaneSampler, fold_in, iteration_key, uniform
+from ..core.rng import (MASK32, LaneSampler, fold_in, iteration_key,
+                        uniform)
 from ..integrators import ppm, pt, vcm
 from ..integrators.common import scene_epsilon
 from ..photon_map import PhotonBatch, min_cell_size_for_window
@@ -71,9 +80,12 @@ def make_sharded_render_raw(scene_template: Scene, camera: Camera,
                             cfg: RenderConfig, mesh: Mesh):
     """The sharded step taking the scene as an argument:
     ``step(scene, iteration, base_key, radius_sq) -> (band [H/D, W, 3],
-    stats)``. Every rank calls it. Gradients with respect to the scene's
-    parameters flow through the collectives (each one's backward is the
-    transposed collective): see ``diff.make_sharded_loss_and_grad``."""
+    stats)``. Every rank calls it. The iteration is an int or a 0-d int64
+    tensor, the key a host or a device key, the radius a number or a 0-d
+    tensor; the tensor forms give the same numbers and read nothing back
+    from the device. Gradients with respect to the scene's parameters
+    flow through the collectives (each one's backward is the transposed
+    collective): see ``diff.make_sharded_loss_and_grad``."""
     n_dev = mesh.size
     _check_divisible(cfg, n_dev)
     W, H = cfg.width, cfg.height
@@ -81,7 +93,7 @@ def make_sharded_render_raw(scene_template: Scene, camera: Camera,
     p_local = cfg.photons_per_iteration // n_dev
     method = cfg.render_method
 
-    def step(scene: Scene, iteration: int, base_key, radius_sq):
+    def step(scene: Scene, iteration, base_key, radius_sq):
         dev = scene.device
         lanes = torch.arange(mesh.rank * n_local, (mesh.rank + 1) * n_local,
                              dtype=torch.int64, device=dev)
@@ -103,16 +115,67 @@ def make_sharded_render_raw(scene_template: Scene, camera: Camera,
     return step
 
 
+def uses_graph(scene: Scene, mesh: Mesh) -> bool:
+    """Whether the sharded step and the sharded gradient replay a captured
+    CUDA graph: on a CUDA scene over a mesh whose collectives a capture
+    can hold (``Mesh.capturable``: rank-less, or NCCL). A gloo mesh
+    copies every operand to the host and the CPU has no graphs: both run
+    the body eagerly."""
+    return scene.device.type == "cuda" and mesh.capturable
+
+
+class StepOperands:
+    """The device operands of a captured sharded step: the iteration (0-d
+    int64), the key's two words (0-d int64) and the squared radius (0-d
+    float32). :meth:`set` writes a call's values, given as numbers and a
+    host key or as tensors, by fills and device copies."""
+
+    def __init__(self, device: torch.device):
+        self.iteration = torch.zeros((), dtype=torch.int64, device=device)
+        self.key = tuple(torch.zeros((), dtype=torch.int64, device=device)
+                         for _ in range(2))
+        self.radius_sq = torch.zeros((), dtype=torch.float32, device=device)
+
+    def set(self, iteration, key, radius_sq) -> None:
+        set_operand(self.iteration, iteration)
+        for buf, w in zip(self.key, key):
+            set_operand(buf, w if torch.is_tensor(w) else int(w) & MASK32)
+        set_operand(self.radius_sq, radius_sq)
+
+
 def make_sharded_render_fn(scene: Scene, camera: Camera, cfg: RenderConfig,
                            mesh: Mesh):
     """``fn(iteration, base_key, radius_sq) -> (band [H/D, W, 3], stats)``
-    over ``mesh``, the scene and camera closed over."""
+    over ``mesh``, the scene and camera closed over; the operands as
+    :func:`make_sharded_render_raw` takes them.
+
+    Where :func:`uses_graph` holds, the first call runs the step eagerly
+    and captures it, and every later call writes its operands into
+    :class:`StepOperands` and replays the graph, the counterpart of JAX's
+    jitted step. Either way a call returns new tensors, as JAX returns new
+    arrays: on the graph route copies of the graph's static outputs,
+    which the next replay rewrites. ``fn.captured`` is the
+    ``capture.CapturedCall`` (None on the eager route); on the graph route
+    ``fn.eager`` is the eager route, the graph's plain version."""
     raw = make_sharded_render_raw(scene, camera, cfg, mesh)
 
-    def step(iteration, base_key, radius_sq):
+    def eager(iteration, base_key, radius_sq):
         return raw(scene, iteration, base_key, radius_sq)
+    if not uses_graph(scene, mesh):
+        eager.captured = None
+        return eager
 
-    return step
+    ops = StepOperands(scene.device)
+    captured = CapturedCall(
+        lambda: raw(scene, ops.iteration, ops.key, ops.radius_sq),
+        scene.device)
+
+    def replay(iteration, base_key, radius_sq):
+        ops.set(iteration, base_key, radius_sq)
+        band, stats = captured.run()
+        return band.clone(), {k: v.clone() for k, v in stats.items()}
+    replay.captured, replay.eager = captured, eager
+    return replay
 
 
 def gather_image(band: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -264,6 +327,6 @@ def _vcm_shard(scene, camera, cfg, mesh, it, key, radius_sq, eps, px, py,
         n_light_paths, px, py, lanes, pair, vgrid=vgrid, radius_sq=radius_sq,
         mesh=mesh)
     stats = reduce_stats(mesh, lstats)
-    stats["vcm_gathered_store_bytes_per_device"] = torch.tensor(
-        gathered_bytes, dtype=torch.int64)
+    stats["vcm_gathered_store_bytes_per_device"] = torch.full(
+        (), gathered_bytes, dtype=torch.int64, device=lanes.device)
     return color + splat_mine, stats

@@ -18,7 +18,10 @@ and ``reps``. Kinds:
 
 * ``render``: the sharded step (``parallel.render``), ``reps`` times
   after a warm-up when ``reps`` > 1; ``image`` the gathered bands,
-  ``band_shape``, ``stat.<k>``, ``ms`` a step (the slowest rank's);
+  ``band_shape``, ``stat.<k>``, ``ms`` a step (the slowest rank's). On a
+  CUDA rank over NCCL (or a one-rank ``mesh``) the step and the
+  gradient below are replays of captured graphs after their first call
+  (``parallel.render.uses_graph``); gloo ranks run them eagerly;
 * ``exchange``: one photon pass and ``exchange_photons_by_cell``; the
   photons' and the partial grids' summed power, the overflow, the slab
   bytes a rank sends and the exchange's ms;
@@ -155,7 +158,9 @@ def _run_render(case, device, world):
     ms = (time.perf_counter() - t0) / reps * 1e3
     out = {"image": gather_image(band, mesh),
            "band_shape": torch.tensor(band.shape),
-           "ms": world.pmax(torch.tensor([ms]))[0]}
+           "ms": world.pmax(torch.tensor([ms]))[0],
+           GRAPH_LAUNCHES: ({} if step.captured is None
+                            else step.captured.launches())}
     out.update({f"stat.{k}": v for k, v in stats.items()})
     return out
 

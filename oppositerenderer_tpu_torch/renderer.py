@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .capture import CapturedCall
 from .config import PhotonMapStructure, RenderConfig, RenderMethod
 from .core.rng import make_root_key
 from .film import Film, load_checkpoint, save_checkpoint
@@ -79,32 +80,28 @@ def _scene_tensors(obj):
             yield from _scene_tensors(getattr(obj, f.name))
 
 
-class CapturedStep:
-    """One iteration of a Renderer captured in a CUDA graph.
+class CapturedStep(CapturedCall):
+    """One iteration of a Renderer captured in a CUDA graph
+    (:class:`capture.CapturedCall`).
 
     The graph's operands are device buffers: the iteration is ``start +
     count * stride`` (int64), ``key`` holds the root key's two words (0-d
     int64 tensors), the camera's tensors are copied into ``camera``, and
     the squared PPM radius is ``radius_sq`` or, where ``closed_form`` is
     set, the float32 closed form of the iteration
-    (``ppm_radius_sq_traced``), the JAX fused loop's radius. One replay renders that iteration into its static
-    outputs (``radiance``, scrubbed of non-finite values, and ``stats``,
-    each a 0-d sum), adds them to ``acc`` and ``stats_acc`` (float32) and
-    advances ``count``: n replays after :meth:`prepare` render the n
-    iterations ``start, start + stride, ...``.
-
-    The first :meth:`run` executes the body eagerly, which builds the
-    kernels and the scene's caches and renders that iteration for real,
-    then captures it. A kernel wrapper counts its Python calls, so the
-    counts it gained during the capture, where nothing launched, are
-    taken back and kept as ``capture_launches``; each replay launches
-    them once (:meth:`launches`)."""
+    (``ppm_radius_sq_traced``), the JAX fused loop's radius. One replay
+    renders that iteration into its static outputs (``radiance``, scrubbed
+    of non-finite values, and ``stats``, each a 0-d sum), adds them to
+    ``acc`` and ``stats_acc`` (float32) and advances ``count``: n replays
+    after :meth:`prepare` render the n iterations ``start, start +
+    stride, ...``. The first :meth:`run` renders that iteration eagerly,
+    then captures it."""
 
     def __init__(self, step, camera: Camera, ppm_initial_radius: float,
                  alpha: float, height: int, width: int,
                  device: torch.device):
+        super().__init__(None, device)
         self.step = step
-        self.device = device
         self.r0 = ppm_initial_radius
         self.alpha = alpha
 
@@ -122,13 +119,9 @@ class CapturedStep:
             for k in _CAMERA_TENSORS})
         self.acc = zero(torch.float32, (height, width, 3))
         self.stats_acc: dict[str, torch.Tensor] | None = None
-        self.radiance: torch.Tensor | None = None
-        self.stats: dict[str, torch.Tensor] | None = None
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.capture_launches: dict[str, int] = {}
-        self.capture_seconds = 0.0
-        self.pool_bytes = 0
-        self.replays = 0
+
+    def body(self):
+        return self._body()
 
     def _body(self):
         """One iteration on the static buffers (what the graph holds)."""
@@ -167,50 +160,6 @@ class CapturedStep:
         self.acc.zero_()
         for v in (self.stats_acc or {}).values():
             v.zero_()
-
-    def run(self):
-        """Render the next iteration: the eager body and the capture on the
-        first call, a replay after. Returns (radiance, stats)."""
-        if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-            return self.radiance, self.stats
-        out = self._body()
-        self._capture()
-        return out
-
-    def _capture(self) -> None:
-        from .accel import kernel_wrappers
-        wrappers = kernel_wrappers()
-        before = [w.launches for w in wrappers]
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                self.radiance, self.stats = self._body()
-        finally:   # the wrappers were called, but launched nothing
-            self.capture_launches = {w.__name__: w.launches - b
-                                     for w, b in zip(wrappers, before)}
-            for w, b in zip(wrappers, before):
-                w.launches = b
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph = graph
-
-    def launches(self) -> dict[str, int]:
-        """Kernel launches of the replays so far, per wrapper name."""
-        return {k: c * self.replays for k, c in self.capture_launches.items()}
-
-    def release(self) -> None:
-        """Drop the graph and its buffers and return its memory pool."""
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = self.radiance = self.stats = None
-        torch.cuda.empty_cache()
 
 
 class Renderer:

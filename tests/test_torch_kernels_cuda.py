@@ -759,6 +759,83 @@ def test_camera_restart_replays_without_recapture(cuda):
     assert r.captured_step is not step
 
 
+def _grads_match(got, want, bits: bool):
+    (loss, grads), (wloss, wgrads) = got, want
+    pairs = [(loss, wloss)] + [(grads[k], v) for k, v in wgrads.items()]
+    for a, b in pairs:
+        if bits:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("method", ["pt", "ppm"])
+def test_captured_gradient_equals_the_eager_one(cuda, method):
+    """The sharded loss and gradient over the rank-less mesh at 64^2: the
+    replays of the captured forward and backward equal its eager route,
+    bit for bit where two eager calls are (else rtol 1e-5), with the
+    eager call's launches and the wrappers' counters still; gradients of
+    earlier calls are not rewritten."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    from oppositerenderer_tpu_torch.parallel import make_mesh
+    scene, cam = get_scene_by_name("CornellSmall", cuda)
+    wrt = {("kd", 0): scene.materials.kd[0], ("emission_scale", 0): 1.0}
+    fn = diff.make_sharded_loss_and_grad(scene, cam, graph_config(method),
+                                         make_mesh(1, device=cuda), wrt)
+    args = dict(iteration=2, key=make_root_key(0), radius_sq=0.003)
+    first = fn(**args)
+    assert fn.captured.graph is not None
+    counts = [w.launches for w in kernel_wrappers()]
+    e1, e2 = fn.eager(**args), fn.eager(**args)
+    eager = {w.__name__: (w.launches - c) // 2
+             for w, c in zip(kernel_wrappers(), counts)}
+    assert fn.captured.capture_launches == eager
+    counts = [w.launches for w in kernel_wrappers()]
+    replayed = fn(**args)
+    kept = first[1][("kd", 0)].clone()
+    moved = fn([wrt[("kd", 0)] * 0.5, 2.0], **args)
+    assert [w.launches for w in kernel_wrappers()] == counts
+    assert fn.captured.replays == 2
+    bits = all(torch.equal(a, b) for a, b in
+               [(e1[0], e2[0])] + [(e1[1][k], e2[1][k]) for k in wrt])
+    _grads_match(replayed, e1, bits)
+    _grads_match(first, e1, bits)
+    assert torch.equal(first[1][("kd", 0)], kept)
+    _grads_match(moved, fn.eager([wrt[("kd", 0)] * 0.5, 2.0], **args),
+                 False)
+    assert float(moved[0]) > float(first[0])
+
+
+@pytest.mark.parametrize("method", ["pt", "ppm"])
+def test_captured_sharded_step_equals_the_unsharded_replay(cuda, method):
+    """The sharded step over the rank-less mesh at 64^2, replayed from its
+    graph, equals the unsharded Renderer iteration (itself a replay) bit
+    for bit, and its stats, which the step sums over ranks in float64,
+    within rel 1e-6; the replays call no wrapper."""
+    from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    from oppositerenderer_tpu_torch.parallel import (make_mesh,
+                                                     make_sharded_render_fn)
+    scene, cam = get_scene_by_name("CornellSmall", cuda)
+    cfg = graph_config(method)
+    r = Renderer(scene, cam, cfg, seed=0)
+    step = make_sharded_render_fn(scene, cam, cfg, make_mesh(1, device=cuda))
+    for it in (1, 2):
+        step(it, r.root_key, r._radius_sq(it))
+        counts = [w.launches for w in kernel_wrappers()]
+        band, stats = step(it, r.root_key, r._radius_sq(it))
+        assert [w.launches for w in kernel_wrappers()] == counts
+        want, wstats = r.compute_iteration(it)
+        assert torch.equal(torch.where(torch.isfinite(band), band, 0.0),
+                           want)
+        for k in stats.keys() & wstats.keys():   # summed in float64
+            assert float(stats[k]) == pytest.approx(float(wstats[k]),
+                                                    rel=1e-6), k
+    assert step.captured.replays == 3
+    assert sum(step.captured.capture_launches.values()) > 0
+
+
 def test_a_capture_that_reads_a_host_value_raises(cuda):
     """No fallback: a step that reads a value back to the host renders its
     eager first iteration, and its capture raises."""
