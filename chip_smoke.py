@@ -172,29 +172,38 @@ and the script exits non-zero without printing the result line:
                  traversal call of one PPM and one VCM iteration of each,
                  bit for bit on a lane sample, timed, summed per iteration.
 19. photon-maps - ppm-main's configuration with the stochastic hash and
-                 with the CPU kd-tree: one warm-up, 3 timed reps of 2
-                 iterations, B1 2 x 16, B2 2 x 4 and B3 no launch a rep;
-                 the structure's build timed in one more iteration, and
-                 one more profiled; the
+                 with the CPU kd-tree, both replaying a captured graph:
+                 one warm-up, 3 timed reps of 2 iterations, B1 2 x 16, B2
+                 2 x 4 and B3 no launch a rep; the hash's build timed in
+                 one more eager iteration, the kd-tree's host build by its
+                 host node's own clock in the reps' last replay; one more
+                 iteration profiled; the
                  image mean against the grid's at the same seed within the
                  JAX package's bars (the hash's within 25%, the kd-tree's
                  within 5%); the mean |difference| per pixel printed.
 19a. graphs    - the compiled iteration. On the card a Renderer renders
-                 PT, PPM (grid, hash, medium), VCM and VCM+VM, dense and
-                 BVH, as replays of one iteration captured in a CUDA
-                 graph (renderer.CapturedStep), so every main phase above
-                 times the graph route; a phase's launches are its
+                 PT, PPM (grid, hash, kd-tree, medium), VCM and VCM+VM,
+                 dense and BVH, as replays of one iteration captured in a
+                 CUDA graph (renderer.CapturedStep; the kd-tree's host
+                 build as a host node between two copies, its gather as
+                 512 captured steps), so every main phase above times the
+                 graph route; a phase's launches are its
                  wrappers' counts (eager iterations: the first of each
                  capture) plus the replays' (the capture's counts times
                  the replays). For PT main, PPM main, PPM in the medium,
-                 the hash, VCM main, VCM+VM main, Atrium PT 512^2 and
-                 Conference PT 1024^2, at the main phases' iteration
-                 counts: the film of n replays against the film of the
-                 eager body (the graph's plain version), bit for bit
-                 (VCM and VCM+VM, whose t=1 splats add atomically, at
-                 shard-main's bar, the max difference printed); one eager
+                 the hash, the kd-tree, VCM main, VCM+VM main, Atrium PT
+                 512^2 and Conference PT 1024^2, at the main phases'
+                 iteration counts: the film of n replays against the film
+                 of the eager body (the graph's plain version), bit for
+                 bit (VCM and VCM+VM, whose t=1 splats add atomically, at
+                 shard-main's bar, the max difference printed); for the
+                 kd-tree also the replays' photons_visited and kd_overrun
+                 equal to the eager body's, B1 16, B2 4 and B3 0 launches
+                 a replay and the host node's build seconds; one eager
                  step with the iteration, key and radius as device
-                 tensors under torch.cuda.set_sync_debug_mode("error");
+                 tensors under torch.cuda.set_sync_debug_mode("error")
+                 (not the kd-tree's, whose eager gather reads a live-lane
+                 flag by design: its capture shows its body reads none);
                  the capture's launches equal to an eager iteration's,
                  and the wrappers' counters still during the replays;
                  ms/iter eager against graph in turns (eager, graph,
@@ -2777,12 +2786,35 @@ def phase_import_main(dev, kernels: dict) -> dict:
     return launches
 
 
+def eager_build_seconds(r, ppm, builder: str) -> float:
+    """The seconds of ``ppm.<builder>`` in one iteration of ``r``'s eager
+    body (a replay would not call it)."""
+    build = getattr(ppm, builder)
+    build_s = []
+
+    def timed_build(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build(*args)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    setattr(ppm, builder, timed_build)
+    try:
+        r._iteration(0, r._radius_sq(0))
+    finally:
+        setattr(ppm, builder, build)
+    return build_s[0]
+
+
 def phase_photon_maps(dev) -> dict:
     """PPM main's configuration with the stochastic hash and with the CPU
-    kd-tree: one warm-up render, MAIN_REPS timed reps of PHOTON_MAP_ITERS
-    iterations (B1 and B2 as on the grid, B3 never); one more iteration
-    times the structure's build, and one more is profiled; the image of
-    the last rep against the
+    kd-tree, both on the graph route: one warm-up render, MAIN_REPS timed
+    reps of PHOTON_MAP_ITERS iterations (B1 and B2 as on the grid, B3
+    never); the build's seconds (the hash's in one more eager iteration,
+    the kd-tree's by its host node's clock in the reps' last replay), and
+    one more iteration is profiled; the image of the last rep against the
     grid's at the same seed and iterations: its mean within the JAX
     package's bars. The mean |difference| per pixel is printed, not held:
     at this size the grid's tile gather subsamples its rows and the
@@ -2810,7 +2842,7 @@ def phase_photon_maps(dev) -> dict:
     launches = {w.__name__: 0 for w in wrappers}
     for structure, builder in (
             (PhotonMapStructure.STOCHASTIC_HASH, "build_stochastic_hash"),
-            (PhotonMapStructure.KD_TREE_CPU, "build_photon_kdtree")):
+            (PhotonMapStructure.KD_TREE_CPU, None)):
         tag = f"photon-maps {structure.name}"
         r = Renderer(scene, cam, base.replace(photon_map_structure=structure),
                      seed=0)
@@ -2823,23 +2855,14 @@ def phase_photon_maps(dev) -> dict:
                   if k in ("photons_stored", "photons_visited",
                            "kd_overrun")}
         img = film.mean_radiance().double()
-        # the build alone, in one more iteration
-        build = getattr(ppm, builder)
-        build_s = []
-
-        def timed_build(*args, build=build, build_s=build_s):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = build(*args)
-            torch.cuda.synchronize()
-            build_s.append(time.perf_counter() - t0)
-            return out
-
-        setattr(ppm, builder, timed_build)
-        try:   # the eager body: a replay would not call the builder
-            r._iteration(0, r._radius_sq(0))
-        finally:
-            setattr(ppm, builder, build)
+        if builder is None:
+            # the kd-tree's host build in the reps' last replay, by the
+            # host node's own clock
+            build_s = kd_build_seconds(r)
+            build_how = "host node"
+        else:
+            build_s = eager_build_seconds(r, ppm, builder)
+            build_how = "eager body"
         med = statistics.median(times)
         mean_rel = abs(float(img.mean() / grid.mean()) - 1.0)
         mean_abs = float((img - grid).abs().mean() / grid.abs().mean())
@@ -2848,7 +2871,7 @@ def phase_photon_maps(dev) -> dict:
               f"{med / PHOTON_MAP_ITERS * 1e3:.3f}, min "
               f"{min(times) / PHOTON_MAP_ITERS * 1e3:.3f}, spread "
               f"{(max(times) - min(times)) / med:.4f}; build "
-              f"{build_s[0]:.4f} s an iteration; per iteration: "
+              f"{build_s:.4f} s an iteration ({build_how}); per iteration: "
               + ", ".join(f"{k} {v:.6g}" for k, v in per_it.items())
               + f"; against the grid's image ({PHOTON_MAP_ITERS} iterations,"
               f" seed 0): mean off by {mean_rel:.4f}, mean |difference| "
@@ -2879,10 +2902,12 @@ def graph_cells(dev):
     ppm = ppm_main_config()
     hashed = ppm.replace(
         photon_map_structure=PhotonMapStructure.STOCHASTIC_HASH)
+    kd = ppm.replace(photon_map_structure=PhotonMapStructure.KD_TREE_CPU)
     yield "PT main", scene, cam, pt, MAIN_ITERS, True
     yield "PPM main", scene, cam, ppm, PPM_MAIN_ITERS, True
     yield "PPM in the medium", medium, cam, ppm, PPM_MAIN_ITERS, True
     yield "the hash", scene, cam, hashed, PHOTON_MAP_ITERS, True
+    yield "the kd-tree", scene, cam, kd, PHOTON_MAP_ITERS, True
     # VCM's t=1 splats add atomically: two renders agree to float
     # tolerance (shard-main's bar), not bits
     yield "VCM main", scene, cam, vcm_main_config(), VCM_MAIN_ITERS, False
@@ -2936,6 +2961,54 @@ def films_agree(label: str, got: torch.Tensor, want: torch.Tensor,
             "splats)")
 
 
+def kd_graph_checks(r, n: int, capture: dict) -> str:
+    """The kd-tree's graph beyond its film: B1 16, B2 4 and B3 no launch a
+    replay; n replays' film and gather stats (photons visited, lanes cut
+    short) equal to the eager body's; the host build's own seconds in
+    each replay (its stage's clock, read after the replay). Returns what
+    was found."""
+    cfg = r.cfg
+    expected = {"closest_hit_tris": (cfg.max_radiance_trace_depth
+                                     + cfg.max_photon_trace_depth),
+                "occluded_tris": cfg.ppm_direct_shadow_samples,
+                "gather_photons_tiled": 0}
+    for k, c in expected.items():
+        if capture.get(k, 0) != c:
+            raise AssertionError(f"graphs the kd-tree: {k} launches "
+                                 f"{capture.get(k, 0)} a replay, not {c}")
+    acc, stats = r._build_fused(eager=True)(r.camera, 0, r.root_key, n, 1)
+    step = r.captured_step
+    step.prepare(r.camera, r.root_key, 0, 1, None)
+    build_s = []
+    for _ in range(n):
+        step.run()
+        torch.cuda.synchronize()
+        build_s.append(kd_build_seconds(r))
+    if not torch.equal(step.acc, acc):
+        raise AssertionError("graphs the kd-tree: the replays' sum differs "
+                             "from the eager body's")
+    for k in ("photons_visited", "kd_overrun"):
+        if not torch.equal(step.stats_acc[k], stats[k]):
+            raise AssertionError(f"graphs the kd-tree: {k} "
+                                 f"{float(step.stats_acc[k])} in the replays"
+                                 f", {float(stats[k])} eager")
+    return (f"; sums and stats equal the eager body's (photons_visited "
+            f"{float(stats['photons_visited']):.0f}, kd_overrun "
+            f"{float(stats['kd_overrun']):.0f} over {n} iterations); host "
+            f"build in the replays "
+            + ", ".join(f"{t:.4f}" for t in build_s) + " s")
+
+
+def kd_build_seconds(r) -> float:
+    """The host build's wall time in the last replay of ``r``'s captured
+    kd-tree step, by the host node's own clock."""
+    stages = list(r.captured_step.kd_stages.values())
+    if len(stages) != 1:
+        raise AssertionError(f"the kd-tree's captured step holds "
+                             f"{len(stages)} stages, not 1")
+    return stages[0].build_seconds
+
+
 def phase_graphs(dev) -> dict:
     """Each main configuration through the captured iteration
     (``renderer.CapturedStep``) against the eager body it captured: the
@@ -2950,6 +3023,7 @@ def phase_graphs(dev) -> dict:
     eager film at the new camera. Returns the replays' launches (the graph
     turns)."""
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
+    from oppositerenderer_tpu_torch.config import PhotonMapStructure
     from oppositerenderer_tpu_torch.core.rng import device_key
     from oppositerenderer_tpu_torch.renderer import (Renderer,
                                                      ppm_radius_sq_traced)
@@ -2970,15 +3044,19 @@ def phase_graphs(dev) -> dict:
         torch.cuda.synchronize()
         eager_counts = {w.__name__: w.launches - b
                         for w, b in zip(wrappers, before)}
-        # one eager step with device operands reads nothing back
+        # one eager step with device operands reads nothing back (but the
+        # kd-tree's, whose eager gather reads a live-lane flag by design:
+        # its captured body, which reads none, is what the capture checks)
+        kd = cfg.photon_map_structure == PhotonMapStructure.KD_TREE_CPU
         it = torch.full((), 1, dtype=torch.int64, device=dev)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            r._raw_step()(r.camera, it, device_key(r.root_key, dev),
-                          ppm_radius_sq_traced(r.ppm_initial_radius,
-                                               cfg.ppm_alpha, it))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        if not kd:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                r._raw_step()(r.camera, it, device_key(r.root_key, dev),
+                              ppm_radius_sq_traced(r.ppm_initial_radius,
+                                                   cfg.ppm_alpha, it))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
         # the first render runs its first iteration eagerly and captures
         r.render(1)
         step = r.captured_step
@@ -2988,6 +3066,7 @@ def phase_graphs(dev) -> dict:
         if capture != eager_counts:
             raise AssertionError(f"{tag}: the capture launches {capture}, "
                                  f"an eager iteration {eager_counts}")
+        kd_found = kd_graph_checks(r, n, capture) if kd else ""
         # timing in turns; the replays' launches by the capture's counts;
         # the first turn's films of each route compared after
         times = {"eager": [], "graph": []}
@@ -3043,7 +3122,8 @@ def phase_graphs(dev) -> dict:
                               for k in ("eager", "graph"))
         spread = {k: (max(v) - min(v)) / statistics.median(v)
                   for k, v in times.items()}
-        print(f"[{tag}] {cfg.width}^2, {n} iterations: graph film {found}; "
+        print(f"[{tag}] {cfg.width}^2, {n} iterations: graph film {found}"
+              f"{kd_found}; "
               f"orbited camera replayed without a capture, {moved_found}; "
               f"launches an iteration {capture}, equal to the eager body's;"
               f" ms/iter in turns (eager, graph, graph, eager): eager "

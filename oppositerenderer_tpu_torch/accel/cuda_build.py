@@ -8,7 +8,9 @@ name carries a key that hashes the flags and every source, so an edit to
 any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
 without it raises. The wrappers (``intersect_kernels``,
 ``gather_kernels``, ``vm_kernels``, ``bvh_kernels``,
-``packet_exp_kernels``) take their entry points from :func:`library`.
+``packet_exp_kernels``) take their entry points from :func:`library`, as
+does the kd-tree's stream-ordered host build (``csrc/kd_stage.cu``,
+``photon_map.KdHostStage``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("intersect.cu", "gather.cu", "vm.cu",
-                             "bvh.cu", "packet_exp.cu"))
+                             "bvh.cu", "packet_exp.cu", "kd_stage.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels round as the
 # plain versions do (the intersection kernels agree with theirs bit for bit)
@@ -47,6 +49,7 @@ ENTRY_POINTS = {
     "packet_steps_variant": [_PTR, _I32, _PTR, _PTR, _I32, _I32, _PTR, _I32,
                              _PTR],
     "packet_steps_cluster": [_I32],
+    "kd_stage_enqueue": [_PTR] * 8 + [_I32, _I32] + [_PTR] * 3,
 }
 
 

@@ -476,7 +476,8 @@ def render_iteration(scene: Scene, camera: Camera, cfg: RenderConfig,
     volumetric photons stored). ``iteration`` is an int or a 0-d int64
     tensor, ``base_key`` a host or a device key, ``radius_sq`` a number or
     a 0-d tensor: the tensor forms draw the same numbers and read nothing
-    from the host (on the grid and the hash)."""
+    from the host, but for the kd-tree's eager gather, whose live-lane
+    checks its captured form leaves out (``photon_map.gather_kdtree``)."""
     W, H = cfg.width, cfg.height
     n = W * H
     dev = scene.device

@@ -1,13 +1,15 @@
 """Native (C++) host components, loaded with ctypes.
 
-The counterpart of ``oppositerenderer_tpu/native``. Three sources, byte
-for byte copies of the JAX package's:
+The counterpart of ``oppositerenderer_tpu/native``. Three sources, copies
+of the JAX package's (byte for byte but for ``kd_build_host``):
 
 * ``bvh_builder.cpp``: the binned-SAH binary BVH build that runs once per
   scene on the host (:func:`build_bvh_native`);
 * ``kdtree_builder.cpp``: the left-balanced photon kd-tree build, once per
   PPM iteration with ``PhotonMapStructure.KD_TREE_CPU``
-  (:func:`build_photon_kdtree_native`);
+  (:func:`build_photon_kdtree_native` on the CPU; on the card its
+  ``kd_build_host``, the JAX package's host callback as a CUDA host
+  function over a :class:`KdStageFields`, :func:`kd_build_host_fn`);
 * ``text_scan.cpp``: the numeric token scanner for scene file payloads
   (:func:`scan_floats`, :func:`scan_ints`).
 
@@ -17,7 +19,8 @@ source and the host CPU (``-march=native`` targets it, so a ``_build/``
 carried to another CPU builds anew instead of loading foreign
 instructions); the same source gives the same results in both packages.
 Without a working g++ a loader returns None and the caller takes the
-numpy or Python fallback instead, as the JAX package does.
+numpy or Python fallback instead, as the JAX package does; the card's
+kd-tree build has no fallback and raises.
 """
 from __future__ import annotations
 
@@ -155,7 +158,32 @@ def kdtree_lib() -> ctypes.CDLL | None:
         lib.build_photon_kdtree.restype = ctypes.c_int
         lib.build_photon_kdtree.argtypes = [_FP, ctypes.c_int, _IP, _IP,
                                             ctypes.c_int]
+        lib.kd_build_host.restype = None
+        lib.kd_build_host.argtypes = [ctypes.c_void_p]
     return lib
+
+
+class KdStageFields(ctypes.Structure):
+    """``KdStage`` of ``kdtree_builder.cpp``: one build's host buffers (the
+    photons' positions [rows, 3] float32 and valid [rows] bytes in, the
+    slots' photon rows and axis flags [m] int32 out) and its results."""
+
+    _fields_ = [("pos", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("perm", ctypes.c_void_p), ("axis", ctypes.c_void_p),
+                ("rows", ctypes.c_int64), ("m", ctypes.c_int64),
+                ("n_valid", ctypes.c_int64), ("seconds", ctypes.c_double)]
+
+
+def kd_build_host_fn() -> int:
+    """The address of ``kd_build_host(void* stage)``, a ``cudaHostFn_t``
+    (a plain function of the g++ library: it touches neither Python nor
+    CUDA, so a stream or a graph's host node may run it). Raises when the
+    library cannot be built."""
+    lib = kdtree_lib()
+    if lib is None:
+        raise RuntimeError("the kd-tree on the card needs the native "
+                           "kd-tree builder, and g++ could not build it")
+    return ctypes.cast(lib.kd_build_host, ctypes.c_void_p).value
 
 
 def _left_subtree_size(n: int) -> int:

@@ -16,11 +16,15 @@ The budgeted gather is PPM's path when the image does not split into
 16x16 blocks; otherwise ``accel/gather_kernels.gather_photons_tiled``
 runs. PPM's two other photon maps (``PhotonMapStructure``) follow: the
 stochastic hash (one survivor per slot, scaled by the slot's count) and
-the CPU kd-tree (built on the host by ``native/kdtree_builder.cpp``,
-range-queried on the device with a fixed stack).
+the CPU kd-tree (built on the host by ``native/kdtree_builder.cpp``, on
+the card in stream order between two copies, and range-queried on the
+device with a fixed stack).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import ctypes
 import dataclasses
 
 import torch
@@ -417,11 +421,12 @@ class PhotonKdTree:
     (config.h:18-21): the tree is median-built on the host
     (``native/kdtree_builder.cpp``), as the reference builds it on the
     CPU, and range-queried on the device with a fixed stack. The sorted
-    uniform grid stays the production structure. A kd-tree iteration
-    stays eager on the card: its build reads the photons on the host (the
-    JAX package's host callback) and its gather reads a live-lane flag
-    every ``KD_STEPS_PER_CHECK`` steps, so it is never captured in a CUDA
-    graph (``renderer.py``).
+    uniform grid stays the production structure. On the card the host
+    build runs in stream order between two copies (:class:`KdHostStage`)
+    and the gather's live-lane checks become conditional graph nodes, so
+    a kd-tree iteration is captured in a CUDA graph as the grid's is
+    (``renderer.py``), where the JAX package jits its host callback and
+    its ``while_loop``.
     """
 
     position: Tensor   # [m,3] the photon at each slot (zeros on null slots)
@@ -438,29 +443,155 @@ def _kd_capacity(n_rows: int) -> int:
     return m
 
 
-def build_photon_kdtree(photons: PhotonBatch) -> PhotonKdTree:
-    """createPhotonKdTreeOnCPU (OptixRenderer_CPUKdTree.cpp:89-129): the
-    positions and the valid mask go to the host, the native builder
-    orders the valid rows, and the tree's slots gather their photons on
-    the device. The capacity follows from all rows, valid or not, as in
-    the JAX package."""
+class KdHostStage:
+    """The kd-tree build of one photon row count on one card: the JAX
+    package's host callback (``_kdtree_callback``, a ``jax.pure_callback``
+    in its jitted step) in stream order. :meth:`enqueue` puts on the
+    current stream the copy of the photons' positions and valid flags into
+    pinned buffers, ``kd_build_host`` as a host function, and the copy of
+    the slots' photon rows and axis flags into device buffers
+    (``csrc/kd_stage.cu``); a CUDA graph captures the four as two memcpy
+    nodes, a host node and two memcpy nodes.
+
+    The buffers are allocated here, which a capture does not allow, so a
+    stage is made by the eager first run of a body and reused by its
+    capture (:func:`kd_host_stage`); a replay reads their raw addresses,
+    so whatever holds the graph holds the stage."""
+
+    def __init__(self, device: torch.device, rows: int):
+        from .native import KdStageFields, kd_build_host_fn
+        self.device = torch.device(device)
+        self.rows = rows
+        self.m = _kd_capacity(rows)
+        self._host_fn = kd_build_host_fn()
+
+        def pinned(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+        self.host_position = pinned((rows, 3), torch.float32)
+        self.host_valid = pinned((rows,), torch.bool)
+        self.host_perm = pinned((self.m,), torch.int32)
+        self.host_axis = pinned((self.m,), torch.int32)
+        self.perm = torch.empty((self.m,), dtype=torch.int32,
+                                device=self.device)
+        self.axis = torch.empty_like(self.perm)
+        self.fields = KdStageFields(
+            pos=self.host_position.data_ptr(),
+            valid=self.host_valid.data_ptr(),
+            perm=self.host_perm.data_ptr(), axis=self.host_axis.data_ptr(),
+            rows=rows, m=self.m)
+
+    def enqueue(self, position: Tensor, valid: Tensor
+                ) -> tuple[Tensor, Tensor]:
+        """Enqueue the build of the tree over ``position`` [rows, 3] float32
+        and ``valid`` [rows] bool (on the stage's card) on the current
+        stream. Returns the device buffers (perm, axis) [m] int32 that it
+        fills, which the next build overwrites."""
+        from .accel.cuda_build import launch_on
+        if (position.shape != (self.rows, 3)
+                or position.dtype != torch.float32
+                or valid.shape != (self.rows,) or valid.dtype != torch.bool
+                or position.device != self.device
+                or valid.device != self.device):
+            raise ValueError(
+                f"the kd-tree stage of {self.rows} rows on {self.device} "
+                f"takes float32 [{self.rows}, 3] positions and bool "
+                f"[{self.rows}] flags there, not {position.dtype} "
+                f"{tuple(position.shape)} and {valid.dtype} "
+                f"{tuple(valid.shape)}")
+        launch_on(self.device, "kd_stage_enqueue", position.contiguous(),
+                  valid.contiguous(), self.host_position, self.host_valid,
+                  self.host_perm, self.host_axis, self.perm, self.axis,
+                  self.rows, self.m, self._host_fn,
+                  ctypes.addressof(self.fields))
+        return self.perm, self.axis
+
+    @property
+    def build_seconds(self) -> float:
+        """The host build's wall time in the last build that ran (its own
+        clock; read after a synchronize)."""
+        return self.fields.seconds
+
+
+def _in_capture(device: torch.device) -> bool:
+    """Whether work for ``device`` is being captured in a CUDA graph."""
+    return (device.type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+# the owner of the stages that builds make: None outside kd_stages(owner)
+_KD_STAGES: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "kd_stages", default=None)
+# the stages of builds outside any owner (the eager route), kept for the
+# process: a stream may still be using one when its build returns
+_SHARED_KD_STAGES: dict = {}
+
+
+@contextlib.contextmanager
+def kd_stages(owner: dict):
+    """Inside the block kd-tree builds on the card take their stages from
+    ``owner`` ((device, rows) -> :class:`KdHostStage`), making them there
+    when missing: ``renderer.CapturedStep`` holds the stages its graph
+    replays this way, and drops them when it drops the graph."""
+    token = _KD_STAGES.set(owner)
+    try:
+        yield owner
+    finally:
+        _KD_STAGES.reset(token)
+
+
+def kd_host_stage(device: torch.device, rows: int) -> KdHostStage:
+    """The stage of ``rows`` photon rows on ``device``: the current owner's
+    (:func:`kd_stages`) or, outside one, the process's. Raises inside a
+    CUDA graph capture when it does not exist yet: a body's eager first
+    run makes it."""
+    owner = _KD_STAGES.get()
+    owner = _SHARED_KD_STAGES if owner is None else owner
+    key = (torch.device(device), rows)
+    stage = owner.get(key)
+    if stage is None:
+        if _in_capture(key[0]):
+            raise RuntimeError(
+                "a kd-tree build is being captured before its host stage "
+                "exists: run the body once eagerly first")
+        stage = owner[key] = KdHostStage(*key)
+    return stage
+
+
+def _host_build(position: Tensor, valid: Tensor) -> tuple[Tensor, Tensor]:
+    """(perm, axis) [m] int32 of the JAX package's ``_kdtree_callback`` by
+    the native builder called directly on host copies (the CPU route)."""
     import numpy as np
 
     from .native import build_photon_kdtree_native
-    p = photons.position
-    dev = p.device
-    m = _kd_capacity(p.shape[0])
-    sel = np.nonzero(photons.valid.cpu().numpy())[0]
+    m = _kd_capacity(position.shape[0])
+    sel = np.nonzero(valid.cpu().numpy())[0]
     perm = np.full((m,), -1, np.int32)
     axis = np.full((m,), KD_NULL, np.int32)
     if sel.size:
         perm_c, axis_c = build_photon_kdtree_native(
-            p.detach()[torch.as_tensor(sel, device=dev)].cpu().numpy())
+            position.cpu().numpy()[sel])
         # compacted rows back to the batch's rows
         perm[:perm_c.shape[0]] = np.where(
             perm_c >= 0, sel[np.clip(perm_c, 0, None)], -1)
         axis[:axis_c.shape[0]] = axis_c
-    perm_t = torch.as_tensor(perm, device=dev)
+    return (torch.as_tensor(perm, device=position.device),
+            torch.as_tensor(axis, device=position.device))
+
+
+def build_photon_kdtree(photons: PhotonBatch) -> PhotonKdTree:
+    """createPhotonKdTreeOnCPU (OptixRenderer_CPUKdTree.cpp:89-129): the
+    native builder orders the valid rows on the host, and the tree's slots
+    gather their photons on the device. The capacity follows from all
+    rows, valid or not, as in the JAX package. On the card the build is
+    enqueued in stream order (:class:`KdHostStage`), eager or captured,
+    with no host read; on the CPU the builder is called directly."""
+    p = photons.position.detach()
+    if p.device.type == "cuda":
+        perm_t, axis_t = kd_host_stage(p.device, p.shape[0]).enqueue(
+            p, photons.valid)
+    else:
+        perm_t, axis_t = _host_build(p, photons.valid)
     safe = torch.clamp(perm_t, 0, p.shape[0] - 1).long()
     null = (perm_t < 0)[:, None]
 
@@ -468,15 +599,14 @@ def build_photon_kdtree(photons: PhotonBatch) -> PhotonKdTree:
         return torch.where(null, 0.0, a[safe])
 
     return PhotonKdTree(
-        position=slots(p), power=slots(photons.power),
+        position=slots(photons.position), power=slots(photons.power),
         direction=slots(photons.direction),
-        axis=torch.where(null[:, 0], KD_NULL,
-                         torch.as_tensor(axis, device=dev)).to(torch.int32),
+        axis=torch.where(null[:, 0], KD_NULL, axis_t).to(torch.int32),
         n_valid=torch.sum(photons.valid).to(torch.int32))
 
 
-# the kd gather asks the device whether any lane is live every this many
-# steps: one host sync per check
+# the eager kd gather asks the host whether any lane is live every this many
+# steps (one host read a check)
 KD_STEPS_PER_CHECK = 16
 
 
@@ -491,9 +621,15 @@ def gather_kdtree(tree: PhotonKdTree, position: Tensor, normal: Tensor,
 
     At most ``max_visits`` steps run (the reference's traversal is
     unbounded; lanes with work left are counted in ``kd_overrun``). The
-    loop asks the device whether any lane is live every
-    ``KD_STEPS_PER_CHECK`` steps: a step changes nothing once no lane is,
-    so the result equals a check at every step.
+    JAX package's ``while_loop`` asks before every step whether any lane
+    is live; a step changes nothing once none is (it adds 0.0 and pushes
+    nothing), so the answer only saves work. Eagerly the loop reads it on
+    the host every ``KD_STEPS_PER_CHECK`` steps and ends at the first
+    check with no live lane; inside a CUDA graph capture, which cannot
+    read it, all ``max_visits`` steps are captured (PyTorch 2.11 gives
+    Python no conditional graph node), and the result is the eager
+    loop's bit for bit. The loop state (stack, stack pointers, sums,
+    visits) is allocated before the first step and updated in place.
 
     Returns (power [N,3], stats with photons_visited [N] and kd_overrun).
     """
@@ -511,21 +647,17 @@ def gather_kdtree(tree: PhotonKdTree, position: Tensor, normal: Tensor,
     accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     visited = torch.zeros((n,), dtype=torch.int32, device=dev)
 
-    def push(stack, sp, child, when):
+    def push(child, when):
         at = torch.clamp_max(sp, stack_size - 1)[:, None]
         keep = stack.gather(1, at)
-        stack = stack.scatter(1, at, torch.where(when[:, None],
-                                                 child[:, None], keep))
-        return stack, sp + when.long()
+        stack.scatter_(1, at, torch.where(when[:, None], child[:, None],
+                                          keep))
+        sp.add_(when.long())
 
-    step = 0
-    while step < max_visits:
-        if step % KD_STEPS_PER_CHECK == 0 and not bool(torch.any(sp > 0)):
-            break
-        step += 1
+    def step():
         active = sp > 0
         slot = stack[lanes, torch.clamp_min(sp - 1, 0)]
-        sp = torch.where(active, sp - 1, sp)
+        sp.sub_(active.long())
 
         ax = tree.axis[slot]
         ppos = tree.position[slot]
@@ -537,9 +669,9 @@ def gather_kdtree(tree: PhotonKdTree, position: Tensor, normal: Tensor,
         if check_normal:
             in_r = in_r & (dot(-tree.direction[slot], normal) >= 0.0)
         w = gaussian_kernel_weight(d2, radius2)
-        accum = accum + torch.where(in_r[:, None],
-                                    tree.power[slot] * w[:, None], 0.0)
-        visited = visited + ok.to(torch.int32)
+        accum.add_(torch.where(in_r[:, None], tree.power[slot] * w[:, None],
+                               0.0))
+        visited.add_(ok.to(torch.int32))
 
         is_internal = ok & (ax < 3)
         axc = torch.clamp(ax, 0, 2).long()
@@ -547,9 +679,15 @@ def gather_kdtree(tree: PhotonKdTree, position: Tensor, normal: Tensor,
         left = delta < 0.0
         near = torch.where(left, 2 * slot + 1, 2 * slot + 2)
         far = torch.where(left, 2 * slot + 2, 2 * slot + 1)
-        stack, sp = push(stack, sp, far, is_internal
-                         & (delta * delta <= radius2) & (far < m))
-        stack, sp = push(stack, sp, near, is_internal & (near < m))
+        push(far, is_internal & (delta * delta <= radius2) & (far < m))
+        push(near, is_internal & (near < m))
+
+    capturing = _in_capture(dev)
+    for done in range(max_visits):
+        if (not capturing and done % KD_STEPS_PER_CHECK == 0
+                and not bool(torch.any(sp > 0))):
+            break
+        step()
     stats = dict(photons_visited=visited,
                  kd_overrun=torch.sum(sp > 0, dtype=torch.int32))
     return accum, stats

@@ -14,13 +14,14 @@ the same thing for the card: one device program the host launches once
 per iteration, whose operands (the iteration, the root key's words, the
 PPM radius and the camera) live in device buffers, so that nothing of
 one iteration is baked into the program; ``_step_fn`` and
-``_build_fused`` replay it. ``_raw_step`` is the eager body, the graph's
-plain version: the CPU runs it, and so does the card wherever the JAX
-package also leaves the compiled program or autograd needs the tape: the
-kd-tree photon map (a host build; ``photon_map.build_photon_kdtree``) and
-a scene holding a tensor that requires grad (``diff``). The route follows
-from the method, the photon map, the device and the scene, never from a
-failure: a capture or a replay that fails raises. The JAX package's
+``_build_fused`` replay it. The kd-tree photon map's host build is in
+the graph too, as a host node between two copies
+(``photon_map.KdHostStage``, the JAX package's ``pure_callback``), with
+its gather's steps. ``_raw_step`` is the eager body, the graph's plain
+version: the CPU runs it, and so does the card where autograd needs the
+tape, for a scene holding a tensor that requires grad (``diff``). The
+route follows from the device and the scene, never from a failure: a
+capture or a replay that fails raises. The JAX package's
 compile tiers, dispatch budget and iteration batching are TPU compile
 workarounds and have no counterpart.
 """
@@ -36,9 +37,10 @@ import torch
 
 from .camera import Camera
 from .capture import CapturedCall
-from .config import PhotonMapStructure, RenderConfig, RenderMethod
+from .config import RenderConfig, RenderMethod
 from .core.rng import make_root_key
 from .film import Film, load_checkpoint, save_checkpoint
+from .photon_map import kd_stages
 from .scene.types import Scene
 
 _CAMERA_TENSORS = ("eye", "lookdir", "up", "camera_u", "camera_v",
@@ -119,9 +121,13 @@ class CapturedStep(CapturedCall):
             for k in _CAMERA_TENSORS})
         self.acc = zero(torch.float32, (height, width, 3))
         self.stats_acc: dict[str, torch.Tensor] | None = None
+        self.kd_stages: dict = {}
 
     def body(self):
-        return self._body()
+        # the kd-tree's host stages, made by the eager first run, are the
+        # graph's: its host node and copies read their addresses
+        with kd_stages(self.kd_stages):
+            return self._body()
 
     def _body(self):
         """One iteration on the static buffers (what the graph holds)."""
@@ -141,6 +147,14 @@ class CapturedStep(CapturedCall):
             self.stats_acc[k] += v.to(torch.float32)
         self.count += 1
         return rad, stats
+
+    def release(self) -> None:
+        """Drop the graph, its pool and the kd-tree stages it reads, once
+        the card has finished with them."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        super().release()
+        self.kd_stages.clear()
 
     def prepare(self, camera: Camera, key, start: int, stride: int,
                 radius_sq: float | None) -> None:
@@ -252,14 +266,9 @@ class Renderer:
 
     def uses_graph(self) -> bool:
         """Whether iterations replay a captured CUDA graph: on a CUDA scene,
-        except for the kd-tree photon map (built on the host) and for a
-        scene holding a tensor that requires grad while grad mode is on
-        (a replay records no autograd tape)."""
+        except for a scene holding a tensor that requires grad while grad
+        mode is on (a replay records no autograd tape)."""
         if self.device.type != "cuda":
-            return False
-        if (self.cfg.render_method == RenderMethod.PROGRESSIVE_PHOTON_MAPPING
-                and self.cfg.photon_map_structure
-                == PhotonMapStructure.KD_TREE_CPU):
             return False
         return not (torch.is_grad_enabled() and any(
             t.requires_grad for t in _scene_tensors(self.scene)))

@@ -12,8 +12,8 @@ the kernel launches (``cuda_build.launch_on``) are shape-only stand-ins,
 and a dispatch mode fails on any operation of that list inside the step
 (a host-to-card copy shows as ``lift_fresh`` or as a copy from a host
 tensor). PT, PPM on the grid, the hash and in a medium, VCM+VM and PT
-through a BVH run at 32^2; the kd-tree, built on the host, is eager by
-design and not audited.
+through a BVH run at 32^2; the kd-tree's iteration, whose host build is a
+stand-in here, is audited in ``test_torch_kdtree_graph.py``.
 """
 import dataclasses
 
@@ -214,17 +214,18 @@ def test_captured_step_holds_no_refused_operation(case, launches):
     assert set(launches) >= set(kernels), launches
 
 
-def test_the_kd_tree_and_autograd_stay_eager():
-    """The kd-tree's build reads its photons on the host, and a replay
-    records no autograd tape: both take the eager body on the card; the
-    grid and the hash take the graph."""
+def test_the_kd_tree_takes_the_graph_and_autograd_stays_eager():
+    """Every photon map takes the graph on the card, the kd-tree too (its
+    host build is a host node of the graph); a replay records no autograd
+    tape, so a scene that requires grad takes the eager body under grad
+    mode."""
     scene, cam = get_scene_by_name("CornellSmall", "cpu")
     with FakeTensorMode():
         scene, cam = fake_like(scene), fake_like(cam)
         for structure, graph in (
                 (PhotonMapStructure.SORTED_UNIFORM_GRID, True),
                 (PhotonMapStructure.STOCHASTIC_HASH, True),
-                (PhotonMapStructure.KD_TREE_CPU, False)):
+                (PhotonMapStructure.KD_TREE_CPU, True)):
             r = Renderer(scene, cam, ppm_cfg(photon_map_structure=structure),
                          ppm_initial_radius=0.05)
             assert r.uses_graph() is graph, structure

@@ -567,7 +567,9 @@ def test_photon_maps_on_the_card_match_the_cpu(cuda, structure, min_share):
 def test_photon_map_tables_on_the_card_equal_the_cpu_tables(cuda):
     """On the same photons the card's hash table and kd-tree are the CPU's
     bit for bit: each slot's winner is found by a max-reduction, not by
-    the order of a racing scatter."""
+    the order of a racing scatter; the kd-tree's host stage (copies and a
+    host function in stream order) gives the CPU builder's permutation,
+    eagerly and replayed from a CUDA graph on other photons."""
     from oppositerenderer_tpu_torch import interop
     from oppositerenderer_tpu_torch import photon_map as pm
     from oppositerenderer_tpu_torch.core.rng import make_root_key
@@ -590,6 +592,30 @@ def test_photon_map_tables_on_the_card_equal_the_cpu_tables(cuda):
                                          h.count, t.position, t.axis)])
     for a, b in zip(*tables):
         assert torch.equal(a, b)
+    # the stage alone, eager and captured, against the CPU builder
+    pos_d = torch.as_tensor(pos, device=cuda)
+    valid_d = torch.as_tensor(leaves["valid"], device=cuda)
+    stage = pm.kd_host_stage(cuda, n)
+    perm, axis = stage.enqueue(pos_d, valid_d)
+    want = pm._host_build(torch.as_tensor(pos),
+                          torch.as_tensor(leaves["valid"]))
+    assert torch.equal(perm.cpu(), want[0])
+    assert torch.equal(axis.cpu(), want[1])
+    assert stage.fields.n_valid == int(leaves["valid"].sum())
+    assert stage.build_seconds > 0.0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        gperm, gaxis = stage.enqueue(pos_d, valid_d)
+        got = (gperm.clone(), gaxis.clone())
+    moved = pos[::-1].copy()
+    pos_d.copy_(torch.as_tensor(moved))
+    valid_d.copy_(torch.as_tensor(leaves["valid"][::-1].copy()))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = pm._host_build(torch.as_tensor(moved),
+                          torch.as_tensor(leaves["valid"][::-1].copy()))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 def test_loaders_put_every_tensor_on_the_card(cuda, tmp_path):
@@ -705,16 +731,20 @@ GRAPH_SIZE = 64
 
 
 def graph_config(method: str) -> RenderConfig:
-    cfg = (chip_smoke.ppm_main_config() if method == "ppm"
+    from oppositerenderer_tpu_torch.config import PhotonMapStructure
+    cfg = (chip_smoke.ppm_main_config() if method in ("ppm", "kd")
            else RenderConfig())
+    if method == "kd":
+        cfg = cfg.replace(photon_map_structure=PhotonMapStructure.KD_TREE_CPU)
     return cfg.replace(width=GRAPH_SIZE, height=GRAPH_SIZE)
 
 
-@pytest.mark.parametrize("method", ["pt", "ppm"])
+@pytest.mark.parametrize("method", ["pt", "ppm", "kd"])
 def test_graph_film_equals_the_eager_film(cuda, method):
-    """PT and PPM main at 64^2: the film of replays equals the eager body's
-    sums bit for bit, and the wrappers' counters stay still while the
-    replays render (the graph launches the kernels)."""
+    """PT, PPM main and PPM main on the kd-tree (its host build a host
+    node of the graph) at 64^2: the film of replays equals the eager
+    body's sums bit for bit, and the wrappers' counters stay still while
+    the replays render (the graph launches the kernels)."""
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
     scene, cam = get_scene_by_name("CornellSmall", cuda)
     r = Renderer(scene, cam, graph_config(method), seed=0)
