@@ -153,6 +153,26 @@ and the script exits non-zero without printing the result line:
                  iteration.
 16. conference-main - the same on Conference (184,714 triangles) at
                  1024x1024, 2 iterations a rep.
+16a. bench     - ``bench_torch.main([])``: the JAX bench's six cases
+                 (bench.py:230-255) at full size on the card, in its
+                 protocol (one warm-up render, 3 timed reps, each after a
+                 restart, median, min and spread), which the main phases
+                 above share (``bench_torch.timed_renders``); its JSON
+                 line is printed. Every case must have replayed a graph,
+                 at a finite and positive rays/s, and launched over its
+                 reps each kernel its path runs and no other: B1 and B2
+                 (pt, ppm, vcm, vcm_vm), B3 (ppm), B4 (vcm_vm), B5 closest
+                 and any hit (atrium_pt, conference_pt).
+16b. pass-timing - ``python -m oppositerenderer_tpu_torch.scripts.
+                 pass_timing --method both`` at 512^2: the JAX script's
+                 eight passes in its order, each a captured call timed
+                 over 5 replays; ppm_gather must have launched B3.
+16c. vcm-modes - ``python -m oppositerenderer_tpu_torch.scripts.
+                 vcm_modes_bench`` at 512^2: the four VCM modes, each a
+                 captured iteration timed over 3 replays; the two with
+                 vertex merging must launch B4, the two without must not.
+                 Each of 16a-16c prints nvidia-smi's SM and memory clocks,
+                 power draw and temperature before and after it.
 17. import-parity - the three native libraries (BVH builder, kd-tree
                  builder, text scanner) must load; the loader on the card
                  against the loader on the CPU, array for array, for
@@ -264,7 +284,8 @@ and the script exits non-zero without printing the result line:
                  renders must have launched B1, B2 and B3.
 
 The line before the last is a JSON object with the kernels' launches over
-the main phases (5, 8, 8b, 11, 12, 12b's graph turns, 15, 16, 18, 19,
+the main phases (5, 8, 8b, 11, 12, 12b's graph turns, 15, 16, 16a's,
+16b's and 16c's timed replays, 18, 19,
 19a's graph turns, 20's sharded timed steps, eager and replayed, and 22's
 workers, summed over their ranks; B6's over 3a's run of the
 microbenchmark), errors, times and bounds; the last line is
@@ -278,6 +299,7 @@ import ctypes
 import dataclasses
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -287,6 +309,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+import bench_torch
+from bench_torch import (card_line, launch_counts, ppm_rays_per_iteration,
+                         pt_rays_per_iteration, vcm_rays_per_iteration)
 
 REPO = Path(__file__).resolve().parent
 GOLDENS = REPO / "tests" / "goldens" / "goldens.npz"
@@ -466,6 +492,15 @@ KERNEL_SOURCES = {
     "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "packet_steps": "oppositerenderer_tpu_torch/csrc/packet_exp.cu",
 }
+# the kernels each case of bench_torch.py launches, and no other
+BENCH_KERNELS = {
+    "pt": ("closest_hit_tris", "occluded_tris"),
+    "ppm": ("closest_hit_tris", "occluded_tris", "gather_photons_tiled"),
+    "vcm": ("closest_hit_tris", "occluded_tris"),
+    "vcm_vm": ("closest_hit_tris", "occluded_tris", "merge_vertices_tiled"),
+    "atrium_pt": ("traverse", "traverse_any"),
+    "conference_pt": ("traverse", "traverse_any"),
+}
 
 
 # tests/test_import.py's DAE (a quad, a glass triangle moved by a node's
@@ -588,35 +623,12 @@ def vcm_main_config(use_vm: bool = False):
         vcm_use_vm=use_vm)
 
 
-def vcm_rays_per_iteration(cfg) -> int:
-    """Ray lanes per VCM iteration (bench.py:43-48): light pass trace and
-    t=1 shadow rays, camera pass trace, s=1 shadow rays and (L-1) vertex
-    connections per bounce."""
-    n = cfg.width * cfg.height
-    L = cfg.vcm_max_path_length
-    return n * (L - 1) * 2 + n * L * (2 + (L - 1))
-
-
 def ppm_main_config():
     """The JAX bench's PPM case (bench.py:232-235) at 512^2."""
     from oppositerenderer_tpu_torch.config import RenderConfig, RenderMethod
     return RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE,
                         render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
                         photons_per_iteration=PPM_MAIN_PHOTONS)
-
-
-def ppm_rays_per_iteration(cfg) -> int:
-    """Eye, photon and shadow ray lanes per PPM iteration (bench.py:36-40)."""
-    n = cfg.width * cfg.height
-    return (n * cfg.max_radiance_trace_depth
-            + cfg.photons_per_iteration * cfg.max_photon_trace_depth
-            + n * cfg.ppm_direct_shadow_samples)
-
-
-def pt_rays_per_iteration(cfg) -> int:
-    """Closest-hit + shadow ray lanes per PT iteration (bench.py:28-33)."""
-    segs = cfg.pt_max_segments
-    return cfg.width * cfg.height * (segs + segs * cfg.pt_shadow_samples)
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -716,14 +728,6 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3,
 
 
 # ---------------------------------------------------------------------------
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0]
-
-
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device available")
@@ -1739,18 +1743,6 @@ def phase_goldens(dev, with_bvh: bool = False) -> None:
             raise AssertionError(f"{name} PT diverged from its golden")
 
 
-def _launch_counts(r=None, graph_before: dict | None = None) -> dict:
-    """Each render kernel's launches: its wrapper's count (eager
-    iterations), plus the graph replays of the Renderer ``r`` since
-    ``graph_before`` (``r.kernel_launches()``: capture counts x replays; a
-    replay calls no wrapper)."""
-    from oppositerenderer_tpu_torch.accel import kernel_wrappers
-    graph = r.kernel_launches() if r is not None else {}
-    before = graph_before or {}
-    return {w.__name__: w.launches + graph.get(w.__name__, 0)
-            - before.get(w.__name__, 0) for w in kernel_wrappers()}
-
-
 def _reset_launches() -> None:
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
     for w in kernel_wrappers():
@@ -1766,32 +1758,23 @@ def graph_pool_gib(r) -> float:
 
 
 def timed_reps(r, iters: int, wrappers, expected: dict, tag: str):
-    """MAIN_REPS timed renders of ``iters`` iterations, each after a
-    restart; in every rep each wrapper must launch its kernel ``expected``
-    times (on the graph route: the replays' launches, the wrappers' own
-    counts staying at 0). Returns (launches summed over the reps, seconds
-    per rep, the last rep's film)."""
+    """MAIN_REPS timed renders of ``iters`` iterations in the bench's
+    protocol (``bench_torch.timed_renders``: each after a restart, every
+    count set to 0 before it); in every rep each wrapper must launch its
+    kernel ``expected`` times (on the graph route: the replays' launches,
+    the wrappers' own counts staying at 0). Returns (launches summed over
+    the reps, seconds per rep, the last rep's film)."""
+    times, per_rep = bench_torch.timed_renders(r, iters, MAIN_REPS)
     launches = {w.__name__: 0 for w in wrappers}
-    times = []
-    for rep in range(MAIN_REPS):
-        r.restart()
-        for w in wrappers:
-            w.launches = 0
-        graph_before = r.kernel_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = r.render(iters)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        every = _launch_counts(r, graph_before)
+    for rep, (t, every) in enumerate(zip(times, per_rep)):
         counts = {w.__name__: every[w.__name__] for w in wrappers}
-        print(f"[{tag}] rep {rep}: {times[-1]:.4f} s, launches {counts}")
+        print(f"[{tag}] rep {rep}: {t:.4f} s, launches {counts}")
         for k, c in counts.items():
             if c != expected[k]:
                 raise AssertionError(f"{k} launched {c} times in a {tag} "
                                      f"rep, expected {expected[k]}")
             launches[k] += c
-    return launches, times, film
+    return launches, times, r.film
 
 
 def phase_main(dev) -> dict:
@@ -2531,6 +2514,103 @@ def phase_bvh_main(dev, tag: str, name: str, size: int, iters: int) -> dict:
     save_png(film, png)
     print(f"[{tag}] image mean {float(img.mean()):.5f}, saved {png}")
     profile_iteration(r, tag)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the measurement entry points: bench_torch.py and the two pass scripts
+def card_state() -> str:
+    """``nvidia-smi``'s SM and memory clocks, power draw and temperature
+    now (printed beside the measurement phases' figures)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                          "power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout or smi.stderr).strip().splitlines()[0]
+
+
+def phase_bench(dev) -> dict:
+    """``bench_torch.main([])``: the JAX bench's six cases at full size on
+    the card, its JSON line printed by it. Every case must have replayed a
+    graph, at a finite and positive rays/s, and launched over its reps
+    each kernel of BENCH_KERNELS[case] and no other."""
+    print(f"[bench] before: {card_state()}")
+    result = bench_torch.main([])
+    print(f"[bench] after: {card_state()}")
+    d = result["detail"]
+    launches = {k: 0 for k in KERNELS}
+    for case in bench_torch.CASES:
+        c = d[case]
+        print(f"[bench] {case}: {c['scene']} {c['resolution']}, "
+              f"{c['iterations']} iterations: ms/iter median "
+              f"{c['ms_per_iteration']:.3f}, min "
+              f"{c['ms_per_iteration_min']:.3f}, spread {c['spread']:.4f}; "
+              f"rays/s {c['rays_per_s']:.4g}; first frames "
+              f"{c['compile_seconds']:.3f} s; load_1m {c['load_1m']} "
+              f"(ok {c['load_ok']}); graph {c['graph']}; launches "
+              + str({k: v for k, v in c["launches"].items() if v}))
+        if not c["graph"]:
+            raise AssertionError(f"bench case {case} did not replay a graph")
+        if not (math.isfinite(c["rays_per_s"]) and c["rays_per_s"] > 0):
+            raise AssertionError(f"bench case {case}: rays/s "
+                                 f"{c['rays_per_s']}")
+        for k, v in c["launches"].items():
+            if (v > 0) != (k in BENCH_KERNELS[case]):
+                raise AssertionError(f"bench case {case} launched {k} {v} "
+                                     "times")
+            launches[k] += v
+    if not d["graph"]:
+        raise AssertionError("the bench's detail does not say graph")
+    print(f"[bench] {card_line()}; kernels built in "
+          f"{d['build_seconds']:.3f} s")
+    return launches
+
+
+def phase_pass_timing(dev) -> dict:
+    """``python -m oppositerenderer_tpu_torch.scripts.pass_timing --method
+    both`` at 512^2: the JAX script's eight passes, each a captured call;
+    ppm_gather must have timed B3."""
+    from oppositerenderer_tpu_torch.scripts import pass_timing
+    print(f"[pass-timing] before: {card_state()}")
+    res = pass_timing.main(["--method", "both", "--size", str(MAIN_SIZE)])
+    print(f"[pass-timing] after: {card_state()}")
+    if tuple(res) != pass_timing.NAMES:
+        raise AssertionError(f"pass_timing printed {tuple(res)}")
+    launches = {k: 0 for k in KERNELS}
+    for name, rec in res.items():
+        if not (math.isfinite(rec["seconds"]) and rec["seconds"] > 0):
+            raise AssertionError(f"pass {name} took {rec['seconds']} s")
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    b3 = res["ppm_gather"]["launches"].get("gather_photons_tiled", 0)
+    print(f"[pass-timing] {card_line()}; ppm_gather launched B3 {b3} times "
+          "over its replays; launches "
+          + str({k: v for k, v in launches.items() if v}))
+    if b3 < 1:
+        raise AssertionError("pass_timing's ppm_gather did not run B3")
+    return launches
+
+
+def phase_vcm_modes(dev) -> dict:
+    """``python -m oppositerenderer_tpu_torch.scripts.vcm_modes_bench`` at
+    512^2: four modes, each a captured call; the modes with vertex
+    merging must launch B4, the others must not."""
+    from oppositerenderer_tpu_torch.scripts import vcm_modes_bench
+    print(f"[vcm-modes] before: {card_state()}")
+    recs = vcm_modes_bench.main(["--size", str(MAIN_SIZE)])
+    print(f"[vcm-modes] after: {card_state()}")
+    if len(recs) != 4:
+        raise AssertionError(f"vcm_modes_bench ran {len(recs)} modes")
+    launches = {k: 0 for k in KERNELS}
+    for rec in recs:
+        b4 = rec["launches"].get("merge_vertices_tiled", 0)
+        if (b4 > 0) != rec["vm"] or not rec["seconds"] > 0:
+            raise AssertionError(f"vcm mode {rec}: B4 launched {b4} times")
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    print(f"[vcm-modes] {card_line()}; B4 launches by mode "
+          + str([rec["launches"].get("merge_vertices_tiled", 0)
+                 for rec in recs]))
     return launches
 
 
@@ -3518,7 +3598,7 @@ def phase_ranks(dev) -> dict:
     print(f"[shard-ranks] {RANKS} worker processes on the card over gloo: "
           f"{len(cases)} cases in {spawn_s:.1f} s (start-up included)")
     # the workers count the render paths' kernels (worker.kernel_wrappers)
-    launches = {k: 0 for k in _launch_counts()}
+    launches = {k: 0 for k in launch_counts()}
     for c in cases:
         for k in launches:
             launches[k] += int(z[f"{c['name']}.launches.{k}"])
@@ -3871,7 +3951,7 @@ def phase_viewer(dev) -> None:
         serving.join(timeout=60)
     if serving.is_alive() or svc._thread.is_alive():
         raise AssertionError("viewer: a thread outlived the stop")
-    launches = _launch_counts(svc.renderer)
+    launches = launch_counts(svc.renderer)
     print(f"[viewer] stopped cleanly after {time.perf_counter() - t0:.1f} "
           f"s; kernel launches {launches}")
     for k in ("closest_hit_tris", "occluded_tris", "gather_photons_tiled"):
@@ -4190,6 +4270,12 @@ def main() -> int:
              CONFERENCE_ITERS)):
         for k, c in timed(tag, phase_bvh_main, dev, tag, scene_name, size,
                           iters).items():
+            launches[k] += c
+    for tag, phase in (("bench", phase_bench),
+                       ("pass-timing", phase_pass_timing),
+                       ("vcm-modes", phase_vcm_modes)):
+        _reset_launches()
+        for k, c in timed(tag, phase, dev).items():
             launches[k] += c
     timed("import-parity", phase_import_parity, dev)
     for phase, args in (("import-main", (phase_import_main, dev, kernels)),

@@ -12,13 +12,24 @@ The reference enumerates its CUDA devices with their properties and maps
 a user-picked ordinal to a device (``RenderEngine/ComputeDevice.{h,cpp}``,
 ``ComputeDeviceRepository.cpp:11-23``); :class:`ComputeDeviceRepository`
 lists the CUDA cards and the CPU, so the CLI can list them
-(``--list-devices``) and pick one (``--device N``).
+(``--list-devices``) and pick one (``--device N``). A device's owning
+process is its ``torch.distributed`` rank, as the JAX descriptor's is its
+``jax.process_index``: every device this process enumerates is its own.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import torch
+
+
+def process_index() -> int:
+    """This process's ``torch.distributed`` rank, or 0 without a process
+    group (``jax.process_index``)."""
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        return torch.distributed.get_rank()
+    return 0
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -42,10 +53,15 @@ class ComputeDevice:
     name: str                    # the card's name, or "cpu"
     platform: str                # "gpu" or "cpu"
     device: str                  # the torch device, e.g. "cuda:0" or "cpu"
+    process_index: int           # owning process: its torch.distributed rank
     compute_capability: tuple[int, int] | None
     multiprocessors: int | None
     memory_total: int | None     # bytes of device memory
     memory_in_use: int | None    # bytes this process has allocated there
+
+    @property
+    def is_local(self) -> bool:
+        return self.process_index == process_index()
 
     def summary(self) -> str:
         extra = ""
@@ -56,7 +72,7 @@ class ComputeDevice:
                      f"{(self.memory_in_use or 0) / 2**30:.2f}/"
                      f"{self.memory_total / 2**30:.2f} GiB")
         return (f"[{self.ordinal}] {self.name} ({self.platform}, "
-                f"{self.device}){extra}")
+                f"{self.device}) host={self.process_index}{extra}")
 
 
 @dataclass
@@ -70,18 +86,21 @@ class ComputeDeviceRepository:
     @classmethod
     def enumerate(cls) -> "ComputeDeviceRepository":
         repo = cls()
+        rank = process_index()
         n_cards = torch.cuda.device_count() if torch.cuda.is_available() \
             else 0
         for i in range(n_cards):
             prop = torch.cuda.get_device_properties(i)
             repo.devices.append(ComputeDevice(
                 ordinal=i, name=prop.name, platform="gpu", device=f"cuda:{i}",
+                process_index=rank,
                 compute_capability=(prop.major, prop.minor),
                 multiprocessors=prop.multi_processor_count,
                 memory_total=prop.total_memory,
                 memory_in_use=torch.cuda.memory_allocated(i)))
         repo.devices.append(ComputeDevice(
             ordinal=n_cards, name="cpu", platform="cpu", device="cpu",
+            process_index=rank,
             compute_capability=None, multiprocessors=None,
             memory_total=None, memory_in_use=None))
         return repo

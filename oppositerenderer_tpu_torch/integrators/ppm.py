@@ -52,7 +52,7 @@ from ..core.rng import Key, LaneSampler, fold_in, fold_in_range, \
 from ..core.sampling import (sample_cone, sample_disc, sample_unit_sphere,
                              sample_unit_hemisphere_cos)
 from ..lights import AREA, SPOT
-from ..photon_map import (PhotonBatch, build_photon_grid,
+from ..photon_map import (PhotonBatch, PhotonGrid, build_photon_grid,
                           build_photon_kdtree, build_stochastic_hash,
                           gather_kdtree, gather_photons,
                           gather_stochastic_hash, min_cell_size_for_window)
@@ -438,17 +438,24 @@ def volumetric_estimate(medium: Medium, cfg: RenderConfig,
 
 def grid_gather(cfg: RenderConfig, hp: HitpointBuffer, photons: PhotonBatch,
                 radius: Tensor, est_key: Key, pixel_lanes: Tensor):
-    """The sorted grid's build and gather: the tile gather when the image
-    splits into 16x16 blocks (``hp`` then holds the whole image's
-    hitpoints), the budgeted gather otherwise. Reads ``hp.position``,
-    ``ns`` and ``found``. Returns (power [N,3], per-query stats)."""
-    W, H = cfg.width, cfg.height
-    n = W * H
-    dev = radius.device
+    """The sorted grid's build and its gather (:func:`gather_on_grid`).
+    Returns (power [N,3], per-query stats)."""
     with pass_scope("ppm_grid_build") as out:
         grid = out(build_photon_grid(
             photons, cfg.photon_grid_resolution,
             min_cell_size=min_cell_size_for_window(radius, 4)))
+    return gather_on_grid(cfg, hp, grid, radius, est_key, pixel_lanes)
+
+
+def gather_on_grid(cfg: RenderConfig, hp: HitpointBuffer, grid: PhotonGrid,
+                   radius: Tensor, est_key: Key, pixel_lanes: Tensor):
+    """The gather on a built grid: the tile gather when the image splits
+    into 16x16 blocks (``hp`` then holds the whole image's hitpoints), the
+    budgeted gather otherwise. Reads ``hp.position``, ``ns`` and
+    ``found``. Returns (power [N,3], per-query stats)."""
+    W, H = cfg.width, cfg.height
+    n = W * H
+    dev = radius.device
     s_gather = LaneSampler(fold_in(est_key, 55), pixel_lanes,
                            cheap=cfg.use_cheap_random)
     with pass_scope("ppm_indirect_gather") as out:

@@ -423,10 +423,10 @@ class PhotonKdTree:
     CPU, and range-queried on the device with a fixed stack. The sorted
     uniform grid stays the production structure. On the card the host
     build runs in stream order between two copies (:class:`KdHostStage`)
-    and the gather's live-lane checks become conditional graph nodes, so
-    a kd-tree iteration is captured in a CUDA graph as the grid's is
-    (``renderer.py``), where the JAX package jits its host callback and
-    its ``while_loop``.
+    and a capture holds all ``max_visits`` steps of the gather, without
+    its live-lane checks (:func:`gather_kdtree`), so a kd-tree iteration
+    is captured in a CUDA graph as the grid's is (``renderer.py``), where
+    the JAX package jits its host callback and its ``while_loop``.
     """
 
     position: Tensor   # [m,3] the photon at each slot (zeros on null slots)

@@ -26,8 +26,25 @@ def test_repository_enumerates_all_devices():
     for i, d in enumerate(repo.devices):
         assert d.ordinal == i
         assert d.platform == ("gpu" if i < n_cards else "cpu")
+        assert d.process_index == 0          # no process group: rank 0
+        assert d.is_local
+        assert "host=0" in d.summary()
     assert repo.devices[-1].device == "cpu"
     assert len(repo.table().splitlines()) == len(repo)
+
+
+def test_process_index_is_the_distributed_rank(monkeypatch):
+    """In a process group a device belongs to this process's rank (JAX's
+    ``process_index``); a descriptor of another rank is not local."""
+    import dataclasses
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 3)
+    repo = ComputeDeviceRepository.enumerate()
+    for d in repo.devices:
+        assert d.process_index == 3 and d.is_local
+        assert "host=3" in d.summary()
+    other = dataclasses.replace(repo.devices[-1], process_index=0)
+    assert not other.is_local
 
 
 def test_repository_pick_returns_live_device():
@@ -87,7 +104,7 @@ def test_cli_lists_the_cpu_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["--list-devices"]) == 0
     rows = capsys.readouterr().out.splitlines()
-    assert rows == ["[0] cpu (cpu, cpu)"]
+    assert rows == ["[0] cpu (cpu, cpu) host=0"]
 
 
 def test_cli_profile_writes_a_trace(tmp_path):

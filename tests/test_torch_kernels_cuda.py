@@ -245,9 +245,9 @@ def render_counting(r, iterations, wrappers):
     """(film, launches per wrapper) of ``r.render(iterations)``: the
     wrappers' own counts (eager iterations: the first of a capture) plus
     the renderer's graph replays (capture counts x replays)."""
-    before = chip_smoke._launch_counts(r)
+    before = chip_smoke.launch_counts(r)
     film = r.render(iterations)
-    after = chip_smoke._launch_counts(r)
+    after = chip_smoke.launch_counts(r)
     return film, [after[w.__name__] - before[w.__name__] for w in wrappers]
 
 
