@@ -269,6 +269,24 @@ and the script exits non-zero without printing the result line:
                  the merged film against one process's at rtol 2e-5, atol
                  1e-6; merge ms); and grad-shard's 2-rank PT gradient at
                  64^2 against the unsharded one (rel 5e-3).
+22a. sharded-phase - ``python -m oppositerenderer_tpu_torch.scripts.
+                 sharded_phase_bench``'s four regimes (PPM all-to-all and
+                 all-gather at 1<<16 photons, VCM paired and uniform at
+                 L = 6; 128^2, iteration 0, seed 0) over 4 worker
+                 processes sharing the card over gloo (one spawn; the JAX
+                 mesh had 8), then over one NCCL rank on the card it maps
+                 to (``distributed.rank_device``; the step replays a
+                 captured graph): one warm-up and 3 timed steps each,
+                 the table with the bytes sent beside the JAX script's
+                 37-byte model; each gathered image against the unsharded
+                 card render (all-gather bit for bit, VCM at rtol 1e-5,
+                 all-to-all by its mean within 1%, no photon lost).
+22b. scaling   - ``python -m oppositerenderer_tpu_torch.scripts.
+                 scaling_bench``'s job, PT 16 and PPM 8 iterations at
+                 512^2, over 1 and 2 processes sharing the card (gloo),
+                 each pinned to a core: the merged film against one
+                 process's at rtol 2e-5, atol 1e-6, the iteration count
+                 exact, every process one or more; each record printed.
 23. tooling    - ``debug.check_iteration`` finds no NaN or infinity in any
                  pass output of PT, PPM and VCM main; the photon
                  histogram (2^16 photons) on the card against the CPU's
@@ -286,8 +304,8 @@ and the script exits non-zero without printing the result line:
 The line before the last is a JSON object with the kernels' launches over
 the main phases (5, 8, 8b, 11, 12, 12b's graph turns, 15, 16, 16a's,
 16b's and 16c's timed replays, 18, 19,
-19a's graph turns, 20's sharded timed steps, eager and replayed, and 22's
-workers, summed over their ranks; B6's over 3a's run of the
+19a's graph turns, 20's sharded timed steps, eager and replayed, and 22's,
+22a's and 22b's workers, summed over their ranks; B6's over 3a's run of the
 microbenchmark), errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -443,6 +461,19 @@ EXCHANGE_POWER_RTOL = 1e-5
 MULTIHOST_ITERS = 8
 MULTIHOST_RTOL, MULTIHOST_ATOL = 2e-5, 1e-6
 GRAD_SHARD_RTOL = 5e-3
+# sharded-phase: the port of scripts/sharded_phase_bench.py at the JAX
+# script's size (128^2, 1<<16 photons, L = 6) over 4 gloo ranks sharing
+# the card (the JAX mesh had 8; 4 keeps the phase short), then over one
+# NCCL rank; 3 timed steps after a warm-up
+SHARDED_PHASE_RANKS = 4
+SHARDED_PHASE_SIZE = 128
+SHARDED_PHASE_PHOTONS = 1 << 16
+SHARDED_PHASE_PATH_LENGTH = 6
+SHARDED_PHASE_REPS = 3
+# scaling: the port of scripts/scaling_bench.py, PT 16 and PPM 8
+# iterations at MAIN_SIZE over 1 and 2 processes sharing the card (gloo)
+SCALING_NPROC = 2
+SCALING_ITERS = 16     # the JAX script's --iters default
 
 # b6: the microbenchmark's defaults (scripts/packet_kernel_exp.py), and
 # 528 = 4 x 132 tiles: 4 blocks for each SM of the H100
@@ -3792,6 +3823,135 @@ def phase_b6(dev) -> tuple[dict, int]:
 
 # ---------------------------------------------------------------------------
 # tooling and the viewer
+def phase_sharded_phase(dev) -> dict:
+    """``sharded_phase_bench``'s four regimes (PPM all-to-all and
+    all-gather, VCM paired and uniform) over SHARDED_PHASE_RANKS gloo
+    ranks sharing the card, then over one NCCL rank (its card by
+    ``distributed.rank_device``; the step a replay of a captured graph);
+    each gathered image against the unsharded card render: the
+    all-gather bit for bit, VCM at RANKS_RTOL, the all-to-all by its mean
+    (RANKS_PPM_MEAN_RTOL) with no photon lost. Prints each run's table,
+    bytes sent beside the JAX script's model. Returns the runs' launches
+    summed over ranks."""
+    from oppositerenderer_tpu_torch.parallel.worker import render_unsharded
+    from oppositerenderer_tpu_torch.scripts import sharded_phase_bench as spb
+    cases = spb.regime_cases(SHARDED_PHASE_SIZE, SHARDED_PHASE_PHOTONS,
+                             SHARDED_PHASE_PATH_LENGTH, SHARDED_PHASE_REPS)
+    launches = {k: 0 for k in launch_counts()}
+    runs = []
+    torch.cuda.empty_cache()
+    for ranks, backend in ((SHARDED_PHASE_RANKS, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        rows, z, desc = spb.run(
+            ranks, "cuda", backend, SHARDED_PHASE_SIZE,
+            SHARDED_PHASE_PHOTONS, SHARDED_PHASE_PATH_LENGTH,
+            SHARDED_PHASE_REPS, timeout=600)
+        cards = z["rank_devices"].tolist()
+        print(f"[sharded-phase] {desc}: the ranks rendered on cuda:{cards};"
+              f" four regimes at {SHARDED_PHASE_SIZE}^2 in "
+              f"{time.perf_counter() - t0:.1f} s (start-up included)")
+        if cards != [0] * ranks:
+            raise AssertionError("sharded-phase: a rank left card 0")
+        for line in spb.table(rows, desc).splitlines():
+            print(f"[sharded-phase] {line}")
+        print(f"[sharded-phase] {json.dumps({'ranks': ranks, 'rows': rows})}")
+        for r in rows:
+            for k, c in r["launches"].items():
+                launches[k] += c
+        runs.append((ranks, backend, z, rows))
+    for c in cases:
+        name = c["name"]
+        want, stats = render_unsharded(c, dev)
+        want = want.double().cpu().numpy()
+        ppm = name.startswith("ppm")
+        for ranks, backend, z, rows in runs:
+            got = z[f"{name}.image"].astype(np.float64)
+            err = float(np.abs(got - want).max())
+            mean_rel = abs(got.mean() / want.mean() - 1.0)
+            if name == "ppm_all_gather":
+                ok, bar = np.array_equal(got, want), "bit for bit"
+            elif ppm:
+                ok = mean_rel <= RANKS_PPM_MEAN_RTOL
+                bar = f"image mean within {RANKS_PPM_MEAN_RTOL}"
+            else:
+                ok = np.allclose(got, want, rtol=RANKS_RTOL,
+                                 atol=RANKS_ATOL_OF_MAX * np.abs(want).max())
+                bar = f"rtol {RANKS_RTOL}"
+            lost = ""
+            if ppm:
+                overflow = int(z[f"{name}.stat.photon_exchange_overflow"]
+                               if name == "ppm_all_to_all" else 0)
+                stored = float(z[f"{name}.stat.photons_stored"])
+                lost = (f"; photons stored {stored:.0f} (unsharded "
+                        f"{float(stats['photons_stored']):.0f}), overflow "
+                        f"{overflow}")
+                ok = ok and overflow == 0 and stored == float(
+                    stats["photons_stored"])
+            print(f"[sharded-phase] {name} over {ranks} {backend} "
+                  f"rank{'s' if ranks > 1 else ''}: max |sharded - "
+                  f"unsharded| {err:.3g}, image mean off by {mean_rel:.2e} "
+                  f"({bar}){lost}")
+            if not ok or not np.isfinite(got).all():
+                raise AssertionError(f"sharded-phase {name} over {ranks} "
+                                     f"{backend} ranks: the sharded image "
+                                     "differs from the unsharded one")
+    for k in ("closest_hit_tris", "occluded_tris", "gather_photons_tiled"):
+        if not launches[k]:
+            raise AssertionError(f"sharded-phase: {k} never launched")
+    return launches
+
+
+def phase_scaling(dev) -> dict:
+    """``scaling_bench``'s job, PT (SCALING_ITERS iterations) and PPM
+    (half) at MAIN_SIZE^2, over 1 and SCALING_NPROC processes sharing the
+    card over gloo, each pinned to a core: the merged film against one
+    process's film rendered here at MULTIHOST_RTOL, the iteration count
+    exact, every process one iteration or more. Prints each record (two
+    processes on one card: overhead, not scaling). Returns the
+    SCALING_NPROC runs' launches summed over ranks."""
+    from oppositerenderer_tpu_torch.parallel.distributed import \
+        MultiHostRenderer
+    from oppositerenderer_tpu_torch.parallel.worker import config_from
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    from oppositerenderer_tpu_torch.scripts import scaling_bench as sb
+    launches = {k: 0 for k in launch_counts()}
+    torch.cuda.empty_cache()
+    for method in ("pt", "ppm"):
+        rec, z = sb.measure(method, SCALING_NPROC, SCALING_ITERS, MAIN_SIZE,
+                            pin_cores=True, device="cuda", backend="gloo")
+        print(f"[scaling] {json.dumps(rec)}")
+        iters = rec["iterations"]
+        scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+        case = sb.scaling_case(iters, MAIN_SIZE, method)
+        mhr = MultiHostRenderer(scene, cam, config_from(case["cfg"]),
+                                seed=sb.SEED)
+        mhr.render_iterations(tuple(range(iters)))
+        want = mhr.local_film().accum.cpu().numpy()
+        got = z["scaling.accum"]
+        rendered = z["scaling.rendered"].tolist()
+        ok = np.allclose(got, want, rtol=MULTIHOST_RTOL, atol=MULTIHOST_ATOL)
+        counts = {k: int(z[f"scaling.launches.{k}"]) for k in launches}
+        print(f"[scaling] {method} {MAIN_SIZE}^2: {SCALING_NPROC} processes"
+              f" rendered {rendered} of {int(z['scaling.iterations'])} "
+              f"iterations; merged film against one process's: max |diff| "
+              f"{float(np.abs(got - want).max()):.3g} (rtol "
+              f"{MULTIHOST_RTOL}); launches "
+              + str({k: c for k, c in counts.items() if c}))
+        if (not ok or not np.isfinite(got).all()
+                or int(z["scaling.iterations"]) != iters
+                or sum(rendered) != iters or min(rendered) < 1):
+            raise AssertionError(f"scaling {method}: the merged film differs"
+                                 " from one process's")
+        need = ("gather_photons_tiled",) if method == "ppm" else (
+            "closest_hit_tris", "occluded_tris")
+        for k in need:
+            if not counts[k]:
+                raise AssertionError(f"scaling {method}: {k} never launched")
+        for k, c in counts.items():
+            launches[k] += c
+    return launches
+
+
 def phase_tooling(dev) -> None:
     """``debug.check_iteration`` on PT, PPM and VCM main; the photon
     histogram on the card against the CPU; ``core.profiling.trace`` of a
@@ -4291,8 +4451,11 @@ def main() -> int:
     b3["max_abs_err"] = max(b3["max_abs_err"], partial_err)
     timed("grad-shard", phase_grad_shard, dev, mesh)
     torch.distributed.destroy_process_group()
-    for k, c in timed("ranks", phase_ranks, dev).items():
-        launches[k] += c
+    for tag, phase in (("ranks", phase_ranks),
+                       ("sharded-phase", phase_sharded_phase),
+                       ("scaling", phase_scaling)):
+        for k, c in timed(tag, phase, dev).items():
+            launches[k] += c
     timed("tooling", phase_tooling, dev)
     timed("viewer", phase_viewer, dev)
     print(json.dumps({"kernels": [

@@ -18,6 +18,7 @@ process is its ``torch.distributed`` rank, as the JAX descriptor's is its
 """
 from __future__ import annotations
 
+import subprocess
 from dataclasses import dataclass, field
 
 import torch
@@ -42,6 +43,16 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "no CUDA device: the port renders on the card by default; pass "
             'device="cpu" to run the plain PyTorch versions on the CPU')
     return torch.device("cuda")
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card, which go
+    beside every time measured on it (a card set below its maximum power
+    runs slower under load)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 @dataclass(frozen=True)

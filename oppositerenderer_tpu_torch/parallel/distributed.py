@@ -35,7 +35,7 @@ from ..devices import resolve_device
 from ..film import Film
 from ..renderer import Renderer
 from ..scene.types import Scene
-from .mesh import make_mesh
+from .mesh import check_nccl_cards, make_mesh
 
 # reference flow-control constants (DistributedApplication.cpp:31,
 # RenderServerConnection.cpp:37-48)
@@ -43,26 +43,69 @@ ITERATIONS_PER_PACKET = 4
 MAX_PENDING_PER_WORKER = 30
 
 
+def default_backend(device: torch.device | str | None) -> str:
+    """The backend a rank on ``device`` takes unless one is named: NCCL
+    for the CUDA card (``device`` None), gloo for the CPU."""
+    return "nccl" if resolve_device(device).type == "cuda" else "gloo"
+
+
+def rank_device(device: torch.device | str | None, rank: int, world: int,
+                backend: str | None = None) -> torch.device:
+    """The device rank ``rank`` of ``world`` renders on, as
+    ``jax.distributed`` gives each process its own device. A bare CUDA
+    device (``"cuda"``, or None: the card) is card ``rank`` when the
+    machine has at least ``world`` cards. With fewer, gloo ranks share
+    ``cuda:0`` and NCCL ranks (``backend`` None on a card means NCCL)
+    raise ``RuntimeError`` (:func:`~.mesh.check_nccl_cards`). The CPU
+    and an indexed card (``"cuda:1"``) stay as given, every rank on it;
+    more than one NCCL rank on an indexed card raises, as NCCL ranks
+    cannot share a card. Without a card a CUDA device raises."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device="
+                           '"cpu") to run the ranks on the CPU')
+    if device.index is not None:
+        if (backend or "nccl") == "nccl" and world > 1:
+            raise RuntimeError(
+                f"{world} NCCL ranks on {device} would share that card, "
+                "which NCCL cannot do: pass --device cuda (a card a rank) "
+                "or --backend gloo (backend=\"gloo\")")
+        return device
+    if torch.cuda.device_count() >= world:
+        return torch.device("cuda", rank)
+    check_nccl_cards(world, backend or "nccl")
+    return torch.device("cuda", 0)
+
+
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
                      backend: str | None = None,
                      device: torch.device | str | None = None,
-                     timeout_seconds: float = 300.0) -> None:
+                     timeout_seconds: float = 300.0) -> torch.device:
     """Join the process group at ``coordinator`` ("host:port"; rank 0
-    listens there) as rank ``process_id`` of ``num_processes``: a no-op
-    for one process. ``backend`` None takes the device's: NCCL for the
-    CUDA card (``device`` None), gloo for the CPU. A collective that
-    waits longer than ``timeout_seconds`` raises."""
-    if num_processes is None or num_processes <= 1:
-        return
-    if backend is None:
-        backend = ("nccl" if resolve_device(device).type == "cuda"
-                   else "gloo")
-    dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_seconds))
+    listens there) as rank ``process_id`` of ``num_processes``, and
+    return the device this rank renders on (:func:`rank_device`), made
+    CUDA's current device before NCCL creates its communicator. For one
+    process no group is made unless ``backend`` is named. ``backend``
+    None takes the device's (:func:`default_backend`); NCCL with more
+    ranks than cards raises before the group is made. A collective that waits longer than
+    ``timeout_seconds`` raises."""
+    world = num_processes or 1
+    rank = process_id or 0
+    named = backend is not None
+    backend = backend or default_backend(device)
+    device = rank_device(device, rank, world, backend)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if world > 1 or named:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator}",
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_seconds))
+    return device
 
 
 @dataclass

@@ -195,6 +195,22 @@ class Mesh:
         return self._collective(fn, x)
 
 
+def check_nccl_cards(world: int, backend: str) -> None:
+    """Raise ``RuntimeError`` when ``world`` NCCL ranks would have to share
+    a card: NCCL cannot put two ranks of one group on one device, and
+    fails inside the collective (or hangs) when asked to. Gloo ranks may
+    share a card (each copies through the host, :meth:`Mesh._send`)."""
+    if backend != "nccl" or world <= 1:
+        return
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world > cards:
+        raise RuntimeError(
+            f"{world} NCCL ranks need a CUDA card each and this machine has "
+            f"{cards}: NCCL cannot put two ranks on one card; pass "
+            "--backend gloo (backend=\"gloo\") to let the ranks share "
+            "cuda:0")
+
+
 def make_mesh(n_devices: int | None = None, group=None,
               device: torch.device | str | None = None) -> Mesh:
     """The mesh over ``group`` (the default process group when one is
@@ -205,7 +221,9 @@ def make_mesh(n_devices: int | None = None, group=None,
     Raises ``ValueError`` when more ranks are asked for than the group
     has (silently taking fewer would make every sharded check a one-rank
     pass), or fewer but more than one: create that group with
-    ``torch.distributed.new_group`` and pass it."""
+    ``torch.distributed.new_group`` and pass it; ``RuntimeError`` for an
+    NCCL group with more ranks than the machine has cards
+    (:func:`check_nccl_cards`)."""
     device = resolve_device(device)
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
@@ -225,4 +243,5 @@ def make_mesh(n_devices: int | None = None, group=None,
     if backend != "gloo" and device.type != "cuda":
         raise ValueError(f"the {backend} backend moves CUDA tensors; this "
                          f"rank renders on {device}")
+    check_nccl_cards(size, backend)
     return Mesh(group, dist.get_rank(group), size, device, backend)

@@ -13,12 +13,16 @@ interpreter, never a fork). Every rank joins the process group at
 as ``<name>.<key>`` arrays. A case is a dict with ``name``, ``kind``,
 ``cfg`` (``RenderConfig`` fields; enums by name) and optionally
 ``scene`` (a scene name), ``medium`` ([sigma_s, sigma_a, box edge]),
-``seed``, ``iteration``, ``radius_sq``, ``mesh`` (the mesh's rank count)
-and ``reps``. Kinds:
+``seed``, ``iteration``, ``radius_sq``, ``mesh`` (the mesh's rank count),
+``reps`` and ``time_each_rep``. Kinds:
 
 * ``render``: the sharded step (``parallel.render``), ``reps`` times
   after a warm-up when ``reps`` > 1; ``image`` the gathered bands,
-  ``band_shape``, ``stat.<k>``, ``ms`` a step (the slowest rank's). On a
+  ``band_shape``, ``stat.<k>``, and ``ms`` a step: the reps run back to
+  back with one synchronize after the last, and the slowest rank's time
+  over ``reps``. With ``time_each_rep`` every rep is synchronized on
+  its own and ``ms_reps`` holds each rep's time, the slowest rank's,
+  instead of ``ms``. On a
   CUDA rank over NCCL (or a one-rank ``mesh``) the step and the
   gradient below are replays of captured graphs after their first call
   (``parallel.render.uses_graph``); gloo ranks run them eagerly;
@@ -29,10 +33,22 @@ and ``reps``. Kinds:
   index], ...]); ``loss``, ``grad.<field>.<index>``, ``seconds``;
 * ``multihost``: ``MultiHostRenderer.run`` over ``iterations``, strided
   or, with ``schedule: "leased"``, through an ``IterationScheduler``;
-  ``accum``, ``iterations``, ``rendered`` (per process), ``merge_ms``.
+  ``accum``, ``iterations``, ``rendered`` (per process), ``merge_ms``;
+* ``scaling``: ``tests/distributed_worker.py``'s timed job: a
+  ``MultiHostRenderer`` warmed up, a barrier, then process w renders
+  iterations w, w + N, ... below ``iterations`` and the film merges;
+  ``accum``, ``iterations``, ``local_iterations``, ``rendered`` (per
+  process), and rank 0's ``seconds`` (render and merge),
+  ``render_seconds`` and ``merge_seconds``.
 
 Every case also records each kernel's launches in it, summed over ranks
-(``launches.<name>``).
+(``launches.<name>``), and ``rank_devices`` holds the card each rank
+rendered on (-1 for the CPU).
+
+With ``--device cuda`` rank r renders on ``cuda:r`` when the machine has
+at least ``--world`` cards; with fewer, gloo ranks share ``cuda:0`` and
+NCCL ranks raise before the group is made
+(``distributed.rank_device``).
 """
 from __future__ import annotations
 
@@ -151,14 +167,24 @@ def _run_render(case, device, world):
     if reps > 1:
         step(*args)          # warm-up
     _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        band, stats = step(*args)
-    _sync(device)
-    ms = (time.perf_counter() - t0) / reps * 1e3
+    if case.get("time_each_rep", False):
+        ms_reps = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            band, stats = step(*args)
+            _sync(device)
+            ms_reps.append((time.perf_counter() - t0) * 1e3)
+        timing = {"ms_reps": world.pmax(torch.tensor(ms_reps,
+                                                     dtype=torch.float64))}
+    else:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            band, stats = step(*args)
+        _sync(device)
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        timing = {"ms": world.pmax(torch.tensor([ms]))[0]}
     out = {"image": gather_image(band, mesh),
-           "band_shape": torch.tensor(band.shape),
-           "ms": world.pmax(torch.tensor([ms]))[0],
+           "band_shape": torch.tensor(band.shape), **timing,
            GRAPH_LAUNCHES: ({} if step.captured is None
                             else step.captured.launches())}
     out.update({f"stat.{k}": v for k, v in stats.items()})
@@ -272,8 +298,40 @@ def _run_multihost(case, device, world):
             GRAPH_LAUNCHES: mhr.kernel_launches()}
 
 
+def _run_scaling(case, device, world):
+    import torch.distributed as dist
+
+    from .distributed import MultiHostRenderer
+    cfg = config_from(case["cfg"])
+    scene, cam = case_scene(case, device)
+    mhr = MultiHostRenderer(scene, cam, cfg, seed=case.get("seed", 0))
+    # the first calls (kernel loads, captures) and the merge run outside
+    # the clock, and the ranks start it together
+    mhr.warmup()
+    if world.size > 1:
+        dist.barrier()
+    t0 = time.perf_counter()
+    mhr.render_iterations(tuple(range(world.rank, case["iterations"],
+                                      world.size)))
+    _sync(device)
+    render_s = time.perf_counter() - t0
+    film = mhr.merged_film()
+    accum = film.accum.cpu()
+    seconds = time.perf_counter() - t0
+    rendered = torch.zeros(world.size, dtype=torch.int64)
+    rendered[world.rank] = mhr.stats["iterations"]
+    return {"accum": accum, "iterations": torch.tensor(film.iterations),
+            "local_iterations": torch.tensor(mhr.stats["iterations"]),
+            "rendered": world.psum(rendered),
+            "seconds": torch.tensor(seconds),
+            "render_seconds": torch.tensor(render_s),
+            "merge_seconds": torch.tensor(seconds - render_s),
+            GRAPH_LAUNCHES: mhr.kernel_launches()}
+
+
 KINDS = {"render": _run_render, "exchange": _run_exchange,
-         "grad": _run_grad, "multihost": _run_multihost}
+         "grad": _run_grad, "multihost": _run_multihost,
+         "scaling": _run_scaling}
 
 
 def run_cases(cases: list[dict], device, world) -> dict[str, np.ndarray]:
@@ -320,22 +378,50 @@ def main(argv=None) -> int:
         torch.set_num_threads(args.threads)
     import torch.distributed as dist
 
-    from ..devices import resolve_device
     from .distributed import init_distributed
     from .mesh import make_mesh
-    device = resolve_device(args.device)
-    init_distributed(f"127.0.0.1:{args.port}", args.world, args.rank,
-                     backend=args.backend, device=device,
-                     timeout_seconds=args.timeout)
+    device = init_distributed(f"127.0.0.1:{args.port}", args.world,
+                              args.rank, backend=args.backend,
+                              device=args.device,
+                              timeout_seconds=args.timeout)
     try:
         cases = json.loads(args.spec.read_text())["cases"]
-        out = run_cases(cases, device, make_mesh(device=device))
+        world = make_mesh(device=device)
+        out = run_cases(cases, device, world)
+        # the card each rank rendered on (-1: the CPU)
+        out["rank_devices"] = world.all_gather(torch.tensor(
+            [device.index if device.type == "cuda" else -1])).numpy()
         if args.rank == 0:
             np.savez(args.out, **out)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     return 0
+
+
+def describe_ranks(device: str, backend: str | None, world: int) -> str:
+    """What ``world`` worker processes on ``device`` run as, e.g. "cuda,
+    nccl, 1 card a process, 4 processes; <nvidia-smi's name, power
+    limit>" or "cuda, gloo, 2 processes sharing 1 card; ...", from the
+    devices ``distributed.rank_device`` gives the ranks: whether they
+    share a card decides whether a multi-rank time measures scaling or
+    overhead. Raises as ``rank_device`` does (no card, or NCCL ranks
+    that would share one)."""
+    from ..devices import card_line
+    from .distributed import default_backend, rank_device
+    backend = backend or default_backend(device)
+    devs = {rank_device(device, r, world, backend) for r in range(world)}
+    kind = next(iter(devs)).type
+    procs = f"{world} process{'es' if world > 1 else ''}"
+    if kind != "cuda":
+        return f"{kind}, {backend}, {procs}"
+    if world == 1:
+        how = procs
+    elif len(devs) == world:
+        how = f"1 card a process, {procs}"
+    else:
+        how = f"{procs} sharing 1 card"
+    return f"{kind}, {backend}, {how}; {card_line()}"
 
 
 def free_port() -> int:
@@ -347,11 +433,13 @@ def free_port() -> int:
 
 def spawn_ranks(world: int, cases: list[dict], out: Path, *,
                 device: str = "cuda", backend: str | None = None,
-                threads: int = 0, timeout: float = 600.0) -> list[str]:
+                threads: int = 0, timeout: float = 600.0,
+                pin_cores: bool = False) -> list[str]:
     """Run ``cases`` on ``world`` fresh worker processes and wait for them
     all (at most ``timeout`` seconds each); rank 0 writes ``out``. When a
     rank fails or times out the others are killed, so that no rank waits
-    on a dead one, and ``RuntimeError`` carries the logs. Returns each
+    on a dead one, and ``RuntimeError`` carries the logs. ``pin_cores``
+    runs rank r on core r modulo the cores (``taskset``). Returns each
     rank's output."""
     spec = Path(str(out) + ".spec.json")
     spec.write_text(json.dumps({"cases": cases}))
@@ -367,11 +455,13 @@ def spawn_ranks(world: int, cases: list[dict], out: Path, *,
     # each rank's output goes to a file: a full pipe would stall the rank
     log_paths = [Path(f"{out}.rank{r}.log") for r in range(world)]
     procs = []
+    cores = os.cpu_count() or 1
     for r, log in enumerate(log_paths):
+        pin = ["taskset", "-c", str(r % cores)] if pin_cores else []
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
-                cmd + ["--rank", str(r)], cwd=str(REPO), env=env, stdout=f,
-                stderr=subprocess.STDOUT))
+                pin + cmd + ["--rank", str(r)], cwd=str(REPO), env=env,
+                stdout=f, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
