@@ -17,6 +17,8 @@ from typing import Any, Callable
 
 import torch
 
+from .core.profiling import span
+
 
 class CapturedCall:
     """``body()`` run eagerly on the first call, then captured in a CUDA
@@ -58,9 +60,10 @@ class CapturedCall:
 
     def run(self):
         """The body's result: eagerly, then captured, on the first call; a
-        replay (the static ``out``) after."""
+        replay (the static ``out``) after, span ``capture.replay``."""
         if self.graph is not None:
-            self.graph.replay()
+            with span("capture.replay"):
+                self.graph.replay()
             self.replays += 1
             return self.out
         out = self.body()

@@ -1,28 +1,32 @@
-"""Tracing and timing: the nvToolsExt / BenchmarkTimer analog.
+"""Tracing: the nvToolsExt analog.
 
 The counterpart of ``oppositerenderer_tpu/core/profiling.py``. The
 reference wraps every render pass in Nsight nvtx ranges
-(``RenderEngine/helpers/nsight.h:12-199``) and times with a pausable wall
-timer (``util/BenchmarkTimer.h:11-29``). In the port:
+(``RenderEngine/helpers/nsight.h:12-199``). In the port:
 
-- ``pass_scope(name)``: a ``torch.profiler.record_function`` range around
-  a render pass, so each pass is a named region of a profiler trace (the
-  nvtx::ScopedRange analog). It yields a function the pass hands its
-  outputs to; under :func:`nonfinite_check` that function records the
-  first pass whose outputs hold a NaN or an infinity (``debug.
-  check_iteration``), otherwise it returns them untouched.
+- ``span(name)``: a ``torch.profiler.record_function`` range, a named
+  region of a profiler trace on the clock its device operations share
+  (the nvtx::ScopedRange analog). With no profiler recording it costs one
+  flag read and records nothing. A range is host-side only: it adds no
+  node, event or operation to a CUDA graph. The frame path's spans
+  (``renderer.*``, ``capture.replay``, ``diff.*``) are host ranges around
+  a graph replay and the work beside it, none of which runs inside a
+  capture.
+- ``pass_scope(name)``: a ``span`` around a render pass. It yields a
+  function the pass hands its outputs to; under :func:`nonfinite_check`
+  that function records the first pass whose outputs hold a NaN or an
+  infinity (``debug.check_iteration``), otherwise it returns them
+  untouched.
 - ``trace(logdir)``: a ``torch.profiler.profile`` of the host and, when a
   CUDA card is present, the card, written as a Chrome trace to
   ``logdir/trace.json`` (the Nsight capture analog); ``None`` runs the
   same code untraced.
-- ``BenchmarkTimer``: the reference's pausable wall timer.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-import time
 from pathlib import Path
 
 import torch
@@ -82,6 +86,17 @@ def nonfinite_check():
 
 
 @contextlib.contextmanager
+def span(name: str):
+    """Named host range of a profiler trace: a ``record_function`` range
+    while a ``torch.profiler`` records, nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(name):
+            yield
+    else:
+        yield
+
+
+@contextlib.contextmanager
 def pass_scope(name: str):
     """Named region for a render pass (nvtx::ScopedRange analog,
     helpers/nsight.h). Yields ``outputs(x) -> x``, through which the pass
@@ -92,7 +107,7 @@ def pass_scope(name: str):
             check.visit(name, x)
         return x
 
-    with torch.profiler.record_function(name):
+    with span(name):
         yield outputs
 
 
@@ -113,41 +128,3 @@ def trace(logdir: str | Path | None):
     Path(logdir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(logdir) / TRACE_FILE))
 
-
-class BenchmarkTimer:
-    """Pausable wall-clock timer (util/BenchmarkTimer.h:11-29): accumulates
-    elapsed time across start/pause cycles; ``seconds`` reads the running
-    total without stopping."""
-
-    def __init__(self, start: bool = False):
-        self._accum = 0.0
-        self._started_at: float | None = None
-        if start:
-            self.start()
-
-    def start(self) -> None:
-        if self._started_at is None:
-            self._started_at = time.perf_counter()
-
-    def pause(self) -> None:
-        if self._started_at is not None:
-            self._accum += time.perf_counter() - self._started_at
-            self._started_at = None
-
-    def reset(self) -> None:
-        self._accum = 0.0
-        self._started_at = None
-
-    def restart(self) -> None:
-        self.reset()
-        self.start()
-
-    @property
-    def running(self) -> bool:
-        return self._started_at is not None
-
-    @property
-    def seconds(self) -> float:
-        live = (time.perf_counter() - self._started_at
-                if self._started_at is not None else 0.0)
-        return self._accum + live

@@ -99,13 +99,15 @@ def make_sharded_loss_and_grad(scene: Scene, camera, cfg, mesh, wrt:
     captures forward, backward and ``psum`` in one CUDA graph; a later
     call copies ``values`` into the graph's leaf tensors (which require
     grad), writes the iteration, key and radius into its operands
-    (``parallel.render.StepOperands``) and replays. Either way the loss
-    and gradients are new tensors that a later call leaves alone, as
-    JAX's are new arrays. ``fn.captured`` is the ``capture.CapturedCall``
-    (None on the eager route); on the graph route ``fn.eager`` is the
-    eager route, the graph's plain version."""
+    (``parallel.render.StepOperands``) and replays (spans
+    ``diff.operands``, ``capture.replay``, ``diff.unpack``). Either way
+    the loss and gradients are new tensors that a later call leaves
+    alone, as JAX's are new arrays. ``fn.captured`` is the
+    ``capture.CapturedCall`` (None on the eager route); on the graph route
+    ``fn.eager`` is the eager route, the graph's plain version."""
     from .accel.intersect import dense_tables
     from .capture import CapturedCall, set_operand
+    from .core.profiling import span
     from .core.rng import make_root_key
     from .parallel.render import (StepOperands, make_sharded_render_raw,
                                   uses_graph)
@@ -157,13 +159,16 @@ def make_sharded_loss_and_grad(scene: Scene, camera, cfg, mesh, wrt:
                                            ops.radius_sq), dev)
 
     def replay(values=None, iteration=0, key=None, radius_sq=0.002):
-        with torch.no_grad():
-            for leaf, v in zip(static, initial if values is None
-                               else values):
-                set_operand(leaf, v)
-        ops.set(iteration, make_root_key(0) if key is None else key,
-                radius_sq)
-        return unpack(captured.run().clone(), static)
+        with span("diff.operands"):
+            with torch.no_grad():
+                for leaf, v in zip(static, initial if values is None
+                                   else values):
+                    set_operand(leaf, v)
+            ops.set(iteration, make_root_key(0) if key is None else key,
+                    radius_sq)
+        total = captured.run()
+        with span("diff.unpack"):
+            return unpack(total.clone(), static)
     replay.captured, replay.eager = captured, eager
     return replay
 

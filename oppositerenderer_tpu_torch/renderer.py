@@ -38,6 +38,7 @@ import torch
 from .camera import Camera
 from .capture import CapturedCall
 from .config import RenderConfig, RenderMethod
+from .core.profiling import span
 from .core.rng import make_root_key
 from .film import Film, load_checkpoint, save_checkpoint
 from .photon_map import kd_stages
@@ -161,19 +162,21 @@ class CapturedStep(CapturedCall):
         """Set the operands of the next replays: the camera, the root key,
         the iteration ``start`` and ``stride``, and ``radius_sq`` (None:
         the closed form). Zeroes the sums and the count. Fills and device
-        copies only, enqueued on the current stream."""
-        for k in _CAMERA_TENSORS:
-            getattr(self.camera, k).copy_(getattr(camera, k))
-        for buf, w in zip(self.key, key):
-            buf.fill_(int(w))
-        self.start.fill_(start)
-        self.stride.fill_(stride)
-        self.count.zero_()
-        self.closed_form.fill_(radius_sq is None)
-        self.radius_sq.fill_(0.0 if radius_sq is None else radius_sq)
-        self.acc.zero_()
-        for v in (self.stats_acc or {}).values():
-            v.zero_()
+        copies only, enqueued on the current stream (span
+        ``renderer.operands``)."""
+        with span("renderer.operands"):
+            for k in _CAMERA_TENSORS:
+                getattr(self.camera, k).copy_(getattr(camera, k))
+            for buf, w in zip(self.key, key):
+                buf.fill_(int(w))
+            self.start.fill_(start)
+            self.stride.fill_(stride)
+            self.count.zero_()
+            self.closed_form.fill_(radius_sq is None)
+            self.radius_sq.fill_(0.0 if radius_sq is None else radius_sq)
+            self.acc.zero_()
+            for v in (self.stats_acc or {}).values():
+                v.zero_()
 
 
 class Renderer:
@@ -411,11 +414,13 @@ class Renderer:
         return self.metrics
 
     def _render_chunk(self, n: int) -> dict[str, torch.Tensor]:
-        """Enqueue ``n`` fused iterations into the film; returns their
-        stats sums, still on the device."""
+        """Enqueue ``n`` fused iterations into the film (span
+        ``renderer.film``); returns their stats sums, still on the
+        device."""
         rad_sum, stats = self._build_fused()(self.camera, self.iteration,
                                              self.root_key, n, 1)
-        self.film = self.film.add_iterations(rad_sum, n)
+        with span("renderer.film"):
+            self.film = self.film.add_iterations(rad_sum, n)
         self.iteration += n
         return stats
 
@@ -423,16 +428,20 @@ class Renderer:
                            iterations: int | None = None) -> None:
         """The last (or only) chunk of a render: ``n`` fused iterations,
         then one synchronize and the metrics, ``iteration_seconds`` over
-        the ``iterations`` rendered since ``t0`` (default: this chunk)."""
+        the ``iterations`` rendered since ``t0`` (default: this chunk).
+        The synchronize and the stats' reads are span
+        ``renderer.readback``."""
         t0 = time.perf_counter() if t0 is None else t0
         stats = self._render_chunk(n)
-        self._sync()
-        dt = time.perf_counter() - t0
+        with span("renderer.readback"):
+            self._sync()
+            dt = time.perf_counter() - t0
+            stats = {k: float(v) for k, v in stats.items()}
         self.metrics = dict(
             iteration=self.iteration,
             iteration_seconds=dt / (iterations or n),
             ppm_radius=math.sqrt(self._radius_sq(self.iteration - 1)),
-            **{k: float(v) for k, v in stats.items()})
+            **stats)
 
     def render(self, iterations: int) -> Film:
         """Render ``iterations`` iterations. Up to
@@ -441,15 +450,16 @@ class Renderer:
         chunks are enqueued without reading anything back (the JAX
         package's ``async_dispatch``); one synchronize at the end, after
         which the metrics hold the last chunk's stats and the mean seconds
-        per iteration."""
-        chunk = max(1, self.cfg.iterations_per_dispatch)
-        t0 = time.perf_counter()
-        done = 0
-        while iterations - done > chunk:
-            self._render_chunk(chunk)
-            done += chunk
-        if iterations > done:
-            self._render_chunk_sync(iterations - done, t0, iterations)
+        per iteration. The call is span ``renderer.render``."""
+        with span("renderer.render"):
+            chunk = max(1, self.cfg.iterations_per_dispatch)
+            t0 = time.perf_counter()
+            done = 0
+            while iterations - done > chunk:
+                self._render_chunk(chunk)
+                done += chunk
+            if iterations > done:
+                self._render_chunk_sync(iterations - done, t0, iterations)
         return self.film
 
     # ------------------------------------------------------------------

@@ -4,15 +4,13 @@ port. The repository lists the CUDA cards, then the CPU; the profiler's
 events carry a ``pass_scope``'s name where JAX's lowered HLO does.
 """
 import json
-import time
 
 import pytest
 import torch
 
 from oppositerenderer_tpu_torch import cli
 from oppositerenderer_tpu_torch.config import RenderConfig
-from oppositerenderer_tpu_torch.core.profiling import (BenchmarkTimer,
-                                                       pass_scope, trace)
+from oppositerenderer_tpu_torch.core.profiling import pass_scope, trace
 from oppositerenderer_tpu_torch.devices import ComputeDeviceRepository
 from oppositerenderer_tpu_torch.integrators import pt
 from oppositerenderer_tpu_torch.core.rng import make_root_key
@@ -82,22 +80,6 @@ def test_trace_captures_to_logdir(tmp_path):
     assert any(logdir.rglob("*")), "no profile output written"
     events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
     assert "pt_raytrace_pass" in {e.get("name") for e in events}
-
-
-def test_benchmark_timer_pausable():
-    t = BenchmarkTimer(start=True)
-    time.sleep(0.02)
-    t.pause()
-    s1 = t.seconds
-    assert s1 >= 0.015
-    time.sleep(0.02)
-    assert t.seconds == s1  # paused: no accumulation
-    t.start()
-    time.sleep(0.01)
-    assert t.seconds > s1
-    assert t.running
-    t.restart()
-    assert t.seconds < 0.01
 
 
 def test_cli_lists_the_cpu_without_a_card(monkeypatch, capsys):
