@@ -19,8 +19,8 @@ and the script exits non-zero without printing the result line:
                  and PIL's version (or "absent").
 2. build       - one nvcc per source, all started together, compiles
                  ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``,
-                 ``csrc/bvh.cu`` and ``csrc/packet_exp.cu`` for sm_90a, and
-                 one more links them into
+                 ``csrc/bvh.cu``, ``csrc/packet_exp.cu``, ``csrc/kd_stage.cu``
+                 and ``csrc/rows.cu`` for sm_90a, and one more links them into
                  one library; prints its cache key, the build time and
                  ptxas' registers and spills. Then g++ must build the
                  host libraries (``native/bvh_builder.cpp``,
@@ -60,7 +60,12 @@ and the script exits non-zero without printing the result line:
                  (the least time of the card for the same work: for B3/B4
                  the pairs each query needs, for B5 the tests and row
                  floats the traversal needs, from the plain version's
-                 counts). With ``--parent``: phase parent-ab, the parent
+                 counts). The row sums (the table-row gather's backward)
+                 on every row sum of a 512^2 PT gradient's backward against
+                 their plain version, aten's accumulate, at rtol 1e-5 and
+                 repeatable bit for bit, timed against their bound (bytes),
+                 the plain version and ``index_put_(accumulate=True)``
+                 alone. With ``--parent``: phase parent-ab, the parent
                  tree's kernels built by the same nvcc flags and timed in
                  turns with this tree's through this tree's wrappers, their
                  outputs compared: B6 (redesigned since) at 64 and 528
@@ -513,6 +518,7 @@ KERNELS = {
     "traverse": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
     "traverse_any": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
     "packet_steps": "scripts/packet_kernel_exp.py:124",
+    "sum_rows": "none: the table-row gather's backward, aten's accumulate",
 }
 KERNEL_SOURCES = {
     "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
@@ -522,6 +528,7 @@ KERNEL_SOURCES = {
     "traverse": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "packet_steps": "oppositerenderer_tpu_torch/csrc/packet_exp.cu",
+    "sum_rows": "oppositerenderer_tpu_torch/csrc/rows.cu",
 }
 # the kernels each case of bench_torch.py launches, and no other
 BENCH_KERNELS = {
@@ -905,7 +912,94 @@ def phase_kernels(dev) -> dict:
     out["gather_photons_tiled"] = gather_kernel_cases(dev)
     out["merge_vertices_tiled"] = vm_kernel_cases(dev)
     out.update(bvh_kernel_cases(dev))
+    out["sum_rows"] = row_sum_cases(dev)
     return out
+
+
+def pt_grad_row_sums(dev) -> list:
+    """(idx, g, rows) of every row sum in the backward of one CornellSmall
+    512^2 PT gradient (kd of material 0 and the emission scale, eager): the
+    backward of each gather of a field that requires grad."""
+    from oppositerenderer_tpu_torch.accel import row_kernels as rk
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    scene, cam = get_scene_by_name(MAIN_SCENE, dev)
+    calls = []
+    real = rk.sum_rows
+
+    def record(idx, g, rows):
+        calls.append((idx, g.contiguous(), rows))
+        return rk.sum_rows_plain(idx, g, rows)
+
+    rk.sum_rows = record
+    try:
+        for param in ("kd", "emission_scale"):
+            loss_and_grad(scene, cam, RenderConfig(width=MAIN_SIZE,
+                                                   height=MAIN_SIZE), param)
+    finally:
+        rk.sum_rows = real
+    return calls
+
+
+def row_sum_cases(dev) -> dict:
+    """The row-sum kernel on every row sum of a 512^2 PT gradient's
+    backward (:func:`pt_grad_row_sums`) against its plain version (aten's
+    accumulate) in float64 at rtol 1e-5 plus 1e-6 of the largest row's
+    |sum|, the float32 plain version's own difference printed; two calls
+    equal bit for bit. Per call and summed over the calls: the kernel
+    (graph replays), its bound (the bytes: the indices, the cotangents,
+    the blocks' partials written and read, the table), the plain version
+    and the library call alone (``index_put_(accumulate=True)`` into a
+    zeroed table), both enqueued from the host."""
+    from oppositerenderer_tpu_torch.accel import cuda_build
+    from oppositerenderer_tpu_torch.accel import row_kernels as rk
+    calls = pt_grad_row_sums(dev)
+    if not calls:
+        raise AssertionError("rows: the PT gradient summed no rows")
+    tot = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    err = err_f32 = 0.0
+    shapes = {}
+    for idx, g, rows in calls:
+        got, again = rk.sum_rows(idx, g, rows), rk.sum_rows(idx, g, rows)
+        if not torch.equal(got, again):
+            raise AssertionError("rows: two calls of the kernel differ")
+        exact = rk.sum_rows_plain(idx, g.double(), rows)
+        # a row sum whose cotangents are all zero must come out zero
+        scale = max(float(exact.abs().max()), 1e-30)
+        torch.testing.assert_close(got.double(), exact, rtol=1e-5,
+                                   atol=1e-6 * scale)
+        f32 = rk.sum_rows_plain(idx, g, rows).double()
+        err = max(err, float((got.double() - exact).abs().max()) / scale)
+        err_f32 = max(err_f32, float((f32 - exact).abs().max()) / scale)
+        n, c = idx.shape[0], g[0].numel()
+        part = cuda_build.library().sum_rows_blocks(n) * rows * c * 4
+        bnd = bound(n * 8 + n * c * 4 + 2 * part + rows * c * 4, 0)
+        table = torch.zeros_like(got)
+        ms = {"ms": cuda_ms(lambda: rk.sum_rows(idx, g, rows)),
+              "bound_ms": bnd["bound_ms"],
+              "plain_ms": cuda_ms(lambda: rk.sum_rows_plain(idx, g, rows),
+                                  batch=1, graph=False),
+              "library_ms": cuda_ms(lambda: table.index_put_(
+                  (idx,), g, accumulate=True), batch=1, graph=False)}
+        for k, v in ms.items():
+            tot[k] += v
+        shapes.setdefault((n, rows, c), ms)
+    for (n, rows, c), ms in shapes.items():
+        print(f"[kernels] rows {rows} x {c}, {n} lanes: kernel "
+              f"{ms['ms']:.4f} ms, bound {ms['bound_ms']:.4f} (bytes), plain "
+              f"{ms['plain_ms']:.4f}, index_put_ accumulate "
+              f"{ms['library_ms']:.4f}")
+    print(f"[kernels] sum_rows on the {len(calls)} row sums of a "
+          f"{MAIN_SCENE} {MAIN_SIZE}^2 PT gradient's backward (kd, then the "
+          f"emission scale): off the float64 sums by {err:.3g} of the "
+          f"largest |sum| at most (aten's float32 accumulate {err_f32:.3g}), "
+          f"repeatable bit for bit; summed: kernel {tot['ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f}, plain {tot['plain_ms']:.4f}, index_put_ "
+          f"accumulate {tot['library_ms']:.4f}")
+    return {"max_rel_err": err, "plain_rel_err": err_f32,
+            "calls": len(calls), **{k: v / len(calls) for k, v in
+                                    tot.items()},
+            "per_step": tot, "bound_by": "bytes"}
 
 
 def soup_tri9(dev, n_tris: int = SOUP_TRIS) -> torch.Tensor:

@@ -8,9 +8,9 @@ name carries a key that hashes the flags and every source, so an edit to
 any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
 without it raises. The wrappers (``intersect_kernels``,
 ``gather_kernels``, ``vm_kernels``, ``bvh_kernels``,
-``packet_exp_kernels``) take their entry points from :func:`library`, as
-does the kd-tree's stream-ordered host build (``csrc/kd_stage.cu``,
-``photon_map.KdHostStage``).
+``packet_exp_kernels``, ``row_kernels``) take their entry points from
+:func:`library`, as does the kd-tree's stream-ordered host build
+(``csrc/kd_stage.cu``, ``photon_map.KdHostStage``).
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("intersect.cu", "gather.cu", "vm.cu",
-                             "bvh.cu", "packet_exp.cu", "kd_stage.cu"))
+                             "bvh.cu", "packet_exp.cu", "kd_stage.cu",
+                             "rows.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels round as the
 # plain versions do (the intersection kernels agree with theirs bit for bit)
@@ -34,9 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argument types; every entry point returns cudaError_t
-# (packet_steps_cluster: a cluster size, or -cudaError_t)
+# (packet_steps_cluster: a cluster size, or -cudaError_t; sum_rows_blocks:
+# a block count)
 ENTRY_POINTS = {
     "closest_hit_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 5,
     "occluded_tris": [_PTR] * 5 + [_I32, _I32] + [_PTR] * 2,
@@ -50,6 +52,8 @@ ENTRY_POINTS = {
                              _PTR],
     "packet_steps_cluster": [_I32],
     "kd_stage_enqueue": [_PTR] * 8 + [_I32, _I32] + [_PTR] * 3,
+    "sum_rows": [_PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _PTR],
+    "sum_rows_blocks": [_I64],
 }
 
 

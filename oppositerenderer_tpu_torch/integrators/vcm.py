@@ -41,6 +41,7 @@ from ..config import RenderConfig
 from ..core.math import Frame, Tensor, dot, length, max3
 from ..core.profiling import pass_scope
 from ..core.rng import Key, LaneSampler, fold_in_range, iteration_key
+from ..core.rows import take_rows
 from ..core.sampling import cos_hemisphere_pdf_w, pdf_w_to_a
 from ..lights import light_emit, light_illuminate
 from ..photon_map import (PhotonBatch, cell_coords, cell_index_1d,
@@ -506,7 +507,7 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         em = live & is_emitter
         if cfg.vcm_connect_light_s0:
             mat = hit.mat.long()
-            lemit = scene.materials.emission[mat]
+            lemit = take_rows(scene.materials.emission, mat)
             front = dot(hit.ns, -d) > 0.0
             mrow = scene.materials.light_index[mat]
             inv_area = scene.lights.inverse_area[

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.math import INV_PI, PI, Tensor, dot, length
+from .core.rows import take_rows
 from .core.sampling import (cone_pdf_w, sample_cone, sample_unit_sphere,
                             sample_unit_hemisphere_cos)
 from .devices import resolve_device
@@ -46,8 +47,9 @@ class LightTable:
         return self.kind.shape[0]
 
     def row(self, idx: Tensor) -> "LightTable":
-        """Per-lane light rows."""
-        return LightTable(**{f: getattr(self, f)[idx] for f in LIGHT_FIELDS})
+        """Per-lane light rows (``core.rows.take_rows``)."""
+        return LightTable(**{f: take_rows(getattr(self, f), idx)
+                             for f in LIGHT_FIELDS})
 
 
 def make_area_light(power, anchor, v1, v2) -> dict:

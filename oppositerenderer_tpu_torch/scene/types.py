@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.math import Tensor, length
+from ..core.rows import take_rows
 from ..lights import LightTable
 
 # material kinds (reference material/ host classes)
@@ -44,8 +45,8 @@ class MaterialTable:
     normal_map_id: Tensor  # [M] int32, -1 = none
 
     def row(self, idx: Tensor) -> "MaterialTable":
-        """Per-lane material rows."""
-        return MaterialTable(**{f: getattr(self, f)[idx]
+        """Per-lane material rows (``core.rows.take_rows``)."""
+        return MaterialTable(**{f: take_rows(getattr(self, f), idx)
                                 for f in MATERIAL_FIELDS})
 
     def bsdf_coefficients(self, idx: Tensor):

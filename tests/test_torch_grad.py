@@ -364,3 +364,93 @@ def test_images_without_gradients_keep_their_bits(label):
     assert not img.requires_grad
     assert hashlib.sha256(img.numpy().tobytes()).hexdigest()[:16] == \
         PINS[label]
+
+
+# ---------------------------------------------------------------------------
+# the table-row gather (core/rows.take_rows) and its row-sum backward
+# ---------------------------------------------------------------------------
+
+def _lanes(rows, n=4096, seed=5):
+    """[n] int64 row indices skewed onto the first rows, a few negative
+    (counted from the end, as indexing counts them)."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.minimum(torch.randint(0, 4, (n,), generator=gen),
+                        torch.randint(0, rows, (n,), generator=gen))
+    idx[::97] = -1
+    return idx
+
+
+@pytest.mark.parametrize("table", ["materials", "lights"])
+def test_row_gives_the_indexings_rows_and_gradient_bit_for_bit(table):
+    """``row`` with grad-requiring fields: the rows of ``field[idx]`` and,
+    on the CPU, autograd's gradient of ``field[idx]`` bit for bit."""
+    scene, _ = get_scene_by_name("CornellSmall", "cpu")
+    tab = getattr(scene, table)
+    fields = (("kd", "emission", "exponent") if table == "materials"
+              else ("power", "emission"))
+    leaves = {f: getattr(tab, f).clone().requires_grad_() for f in fields}
+    idx = _lanes(getattr(tab, fields[0]).shape[0])
+    rows = dataclasses.replace(tab, **leaves).row(idx)
+    gen = torch.Generator().manual_seed(9)
+    for f, leaf in leaves.items():
+        got = getattr(rows, f)
+        want = leaf[idx]
+        assert torch.equal(got, want)
+        assert type(got.grad_fn).__name__ == "GatherRowsBackward"
+        cot = torch.rand(got.shape, generator=gen)
+        g_got, = torch.autograd.grad(got, leaf, cot)
+        g_want, = torch.autograd.grad(want, leaf, cot)
+        assert torch.equal(g_got, g_want), f
+        assert g_got.abs().sum() > 0
+
+
+def test_row_without_grad_is_the_plain_indexing():
+    """A field that requires no grad, or any field with grad disabled, is
+    ``field[idx]`` itself; the kernel's counter never moves on the CPU."""
+    from oppositerenderer_tpu_torch.accel import row_kernels
+    scene, _ = get_scene_by_name("CornellSmall", "cpu")
+    m = scene.materials
+    idx = _lanes(m.kd.shape[0])
+    before = row_kernels.sum_rows.launches
+    rows = m.row(idx)
+    assert all(getattr(rows, f).grad_fn is None for f in ("kd", "kind"))
+    kd = m.kd.clone().requires_grad_()
+    with torch.no_grad():
+        assert dataclasses.replace(m, kd=kd).row(idx).kd.grad_fn is None
+    rows = dataclasses.replace(m, kd=kd).row(idx)
+    assert rows.ks.grad_fn is None
+    torch.autograd.grad(rows.kd.sum(), kd)
+    assert row_kernels.sum_rows.launches == before
+
+
+@pytest.mark.parametrize("method", ["pt", "vcm"])
+def test_gradient_keeps_its_bits_through_the_row_gather(method,
+                                                        monkeypatch):
+    """The kd and emission-scale gradients of a 16^2 iteration on the CPU
+    equal those of plain indexing, bit for bit."""
+    from oppositerenderer_tpu_torch.core import rows
+    scene, cam = get_scene_by_name("CornellSmall", "cpu")
+    cfg = (RenderConfig(width=16, height=16) if method == "pt" else
+           RenderConfig(width=16, height=16, render_method=VCM,
+                        vcm_max_path_length=4))
+
+    def render(s):
+        if method == "pt":
+            return pt.render_iteration(s, cam, cfg, 1, make_root_key(SEED))
+        return vcm.render_iteration(s, cam, cfg, 1, make_root_key(SEED),
+                                    R2)[0]
+
+    wrt = {("kd", 0): scene.materials.kd[0], ("emission_scale", 0): 1.0}
+    calls = []
+    apply = rows.GatherRows.apply
+    monkeypatch.setattr(rows.GatherRows, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    got = diff.render_loss_and_grad(render, scene, wrt)
+    assert calls
+    monkeypatch.setattr(rows.GatherRows, "apply",
+                        lambda table, idx: table[idx])
+    want = diff.render_loss_and_grad(render, scene, wrt)
+    assert torch.equal(got[0], want[0])
+    for k in wrt:
+        assert torch.equal(got[1][k], want[1][k]), k
+        assert float(got[1][k].abs().sum()) > 0

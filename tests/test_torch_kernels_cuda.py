@@ -885,3 +885,105 @@ def test_a_capture_that_reads_a_host_value_raises(cuda):
     assert r.captured_step.graph is None
     torch.cuda.synchronize()
     assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+# ---------------------------------------------------------------------------
+# the row sums (csrc/rows.cu): the backward of the table-row gather
+# ---------------------------------------------------------------------------
+
+ROW_LANES = 262144
+
+
+def row_lanes(pattern, m, seed=3):
+    """[ROW_LANES] int64 rows: all on one row, a few rows in skewed shares
+    (some as negative indices), or uniform over the m rows."""
+    rng = np.random.default_rng(seed)
+    if pattern == "one row":
+        idx = np.full(ROW_LANES, m // 2)
+    elif pattern == "skewed":
+        few = rng.choice(m, size=min(m, 4), replace=False)
+        share = np.array([0.6, 0.25, 0.1, 0.05])[:few.size]
+        idx = rng.choice(few, size=ROW_LANES, p=share / share.sum())
+        idx[::101] -= m
+    else:
+        idx = rng.integers(0, m, ROW_LANES)
+    return torch.as_tensor(idx.astype(np.int64))
+
+
+@pytest.mark.parametrize("pattern", ["one row", "skewed", "uniform"])
+@pytest.mark.parametrize("m", [1, 6, 64, 1000])
+@pytest.mark.parametrize("c", [1, 3])
+def test_row_kernel_matches_plain_version(cuda, c, m, pattern):
+    """At the PT gradient's 262,144 lanes: within rtol 1e-5 of the plain
+    version (the sums run in another order), which sums in float64 here:
+    in float32 its serial sums over a row's lanes are themselves up to
+    1.3e-5 off the exact sums at these shapes; rows no lane holds exactly
+    zero; two calls equal bit for bit, one launch each."""
+    from oppositerenderer_tpu_torch.accel import row_kernels as rk
+    idx = row_lanes(pattern, m)
+    rng = np.random.default_rng(m + c)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, (ROW_LANES, c))
+                        .astype(np.float32)).reshape((ROW_LANES,)
+                                                     + (c,) * (c > 1))
+    gd, idxd = g.to(cuda), idx.to(cuda)
+    before = rk.sum_rows.launches
+    got = rk.sum_rows(idxd, gd, m)
+    again = rk.sum_rows(idxd, gd, m)
+    assert rk.sum_rows.launches == before + 2
+    assert got.shape == (m,) + g.shape[1:] and torch.equal(got, again)
+    want = rk.sum_rows_plain(idxd, gd.double(), m)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0.0)
+    assert not got[want == 0].any()
+
+
+def test_row_kernel_at_and_above_its_shared_memory(cuda):
+    """The largest table the warps' copies fit (past the default 48 KB of
+    shared memory) against its plain version; one row more, or five
+    values a row, raises and launches nothing."""
+    from oppositerenderer_tpu_torch.accel import row_kernels as rk
+    m = rk.MAX_TABLE_FLOATS // 3
+    idx = row_lanes("uniform", m).to(cuda)
+    g = torch.as_tensor(np.random.default_rng(7).random((ROW_LANES, 3),
+                                                        np.float32),
+                        device=cuda)
+    torch.testing.assert_close(rk.sum_rows(idx, g, m).double(),
+                               rk.sum_rows_plain(idx, g.double(), m),
+                               rtol=1e-5, atol=0.0)
+    before = rk.sum_rows.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.sum_rows(idx, g, m + 1)
+    with pytest.raises(ValueError, match="1 to 4"):
+        rk.sum_rows(idx, torch.ones((ROW_LANES, 5), device=cuda), 6)
+    assert rk.sum_rows.launches == before
+
+
+def test_pt_gradient_launches_one_row_sum_a_grad_gather(cuda, monkeypatch):
+    """One 64^2 PT gradient (kd and the emission scale): on the card one
+    row-sum launch for each backward of a gather of a field that requires
+    grad (a gather whose rows reach the loss), as many as the CPU's plain
+    row sums, and no plain row sum."""
+    from oppositerenderer_tpu_torch import diff
+    from oppositerenderer_tpu_torch.accel import row_kernels as rk
+    from oppositerenderer_tpu_torch.core import rows
+    gathers, plain = [], []
+    apply, sum_plain = rows.GatherRows.apply, rk.sum_rows_plain
+    monkeypatch.setattr(rows.GatherRows, "apply",
+                        lambda *a: gathers.append(1) or apply(*a))
+    monkeypatch.setattr(rk, "sum_rows_plain",
+                        lambda *a: plain.append(1) or sum_plain(*a))
+    counts = {}
+    for dev in ("cpu", cuda):
+        scene, cam = get_scene_by_name("CornellSmall", dev)
+        gathers.clear(), plain.clear()
+        before = rk.sum_rows.launches
+        _, grads = diff.render_loss_and_grad(
+            lambda s: Renderer(s, cam, RenderConfig(width=64, height=64),
+                               seed=1)._iteration(0, 0.003)[0],
+            scene, {("kd", 0): scene.materials.kd[0],
+                    ("emission_scale", 0): 1.0})
+        assert float(grads[("emission_scale", 0)]) > 0
+        counts[str(dev)] = (len(gathers), len(plain),
+                            rk.sum_rows.launches - before)
+    n_gathers, n_plain, none = counts["cpu"]
+    assert none == 0 and 10 <= n_plain <= n_gathers
+    assert counts[str(cuda)] == (n_gathers, 0, n_plain)
