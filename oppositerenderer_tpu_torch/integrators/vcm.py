@@ -25,6 +25,13 @@ sample and of all its vertex connections in one batch, one any-hit
 launch where the JAX package traces each technique's rays alone; the
 contributions are added in the JAX package's order. The coherent
 first-bounce peel (a BVH routing choice of the TPU) is not ported.
+
+Inside the ``vcm_light_pass`` and ``vcm_camera_pass`` scopes, each light
+bounce's t=1 splats run in a ``vcm_splat`` span and each camera bounce's
+s=1 sample, vertex connections and their shadow rays in a
+``vcm_connect`` span: profiler ranges of an eager body, nothing in a
+graph. They are spans and not pass scopes, so that a non-finite check
+still names the pass.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from ..bsdf import BSDF
 from ..camera import Camera
 from ..config import RenderConfig
 from ..core.math import Frame, Tensor, dot, length, max3
-from ..core.profiling import pass_scope
+from ..core.profiling import pass_scope, span
 from ..core.rng import Key, LaneSampler, fold_in_range, iteration_key
 from ..core.rows import take_rows
 from ..core.sampling import cos_hemisphere_pdf_w, pdf_w_to_a
@@ -194,9 +201,11 @@ def trace_light_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
 
         # t=1: connect to the camera (vcm.h:65-161)
         if cfg.vcm_connect_camera_t1:
-            splat = splat + _connect_camera_t1(
-                scene, camera, cfg, bsdf, hit.position, throughput, dVCM,
-                dVC, storeable, n_light_paths_global, mis_vm_w, eps)
+            with span("vcm_splat"):
+                splat = splat + _connect_camera_t1(
+                    scene, camera, cfg, bsdf, hit.position, throughput,
+                    dVCM, dVC, storeable, n_light_paths_global, mis_vm_w,
+                    eps)
 
         # terminate if too long (vcm.h:303-307), else scatter
         can_continue = live & (cfg.vcm_max_path_length >= depth1 + 2)
@@ -525,70 +534,76 @@ def trace_camera_pass(scene: Scene, camera: Camera, cfg: RenderConfig,
         live2 = live & ~em & (cos_in >= EPS_COSINE)
         connectable = live2 & ~bsdf.is_specular()
 
-        # the shadow rays of this bounce's techniques, (direction, tmax,
-        # contribution, ok) each, traced in one batch below
-        shadow = []
+        # s=1 and the vertex connections, their shadow rays in one batch
+        with span("vcm_connect"):
+            # the shadow rays of this bounce's techniques, (direction, tmax,
+            # contribution, ok) each, traced in one batch below
+            shadow = []
 
-        # s=1: next-event estimation with full MIS (vcm.h:406-488)
-        if cfg.vcm_connect_light_s1:
-            li = torch.clamp_max((skey.next1() * n_lights).to(torch.int64),
-                                 n_lights - 1)
-            rows = scene.lights.row(li)
-            radiance, dir_l, ldist, direct_pdf_w, emission_pdf_w, \
-                cos_at_light = light_illuminate(
-                    rows, skey.next2(), hit.position, center, sradius,
-                    eps_cosine=cfg.eps_cosine)
-            f, cos_to_light, bsdf_dir_pdf, bsdf_rev_pdf = bsdf.f(dir_l)
-            cont = _cont_prob(bsdf, cfg)
-            bsdf_dir_pdf = torch.where(rows.is_delta, 0.0,
-                                       bsdf_dir_pdf * cont)
-            bsdf_rev_pdf = bsdf_rev_pdf * cont
-            w_light = torch.clamp_min(bsdf_dir_pdf / torch.clamp_min(
-                light_pick_prob * direct_pdf_w, 1e-30), 0.0)
-            w_camera = torch.clamp_min(
-                emission_pdf_w * torch.clamp_min(cos_to_light, 0.0)
-                / torch.clamp_min(direct_pdf_w * cos_at_light, 1e-30)
-                * (mis_vm_w + dVCM + dVC * bsdf_rev_pdf), 0.0)
-            mis_weight = (1.0 / (w_light + 1.0 + w_camera)).detach()
-            geom_factor = (torch.clamp_min(cos_to_light, 0.0)
-                           / torch.clamp_min(light_pick_prob * direct_pdf_w,
-                                             1e-30)).detach()
-            contrib = (mis_weight * geom_factor)[:, None] \
-                * radiance * f * throughput
-            ok = connectable & (max3(radiance) > 0.0) & (max3(f) > 0.0)
-            shadow.append((dir_l, torch.where(
-                ok, torch.maximum(ldist - 2 * eps, eps), 0.0), contrib, ok))
+            # s=1: next-event estimation with full MIS (vcm.h:406-488)
+            if cfg.vcm_connect_light_s1:
+                li = torch.clamp_max(
+                    (skey.next1() * n_lights).to(torch.int64), n_lights - 1)
+                rows = scene.lights.row(li)
+                radiance, dir_l, ldist, direct_pdf_w, emission_pdf_w, \
+                    cos_at_light = light_illuminate(
+                        rows, skey.next2(), hit.position, center, sradius,
+                        eps_cosine=cfg.eps_cosine)
+                f, cos_to_light, bsdf_dir_pdf, bsdf_rev_pdf = bsdf.f(dir_l)
+                cont = _cont_prob(bsdf, cfg)
+                bsdf_dir_pdf = torch.where(rows.is_delta, 0.0,
+                                           bsdf_dir_pdf * cont)
+                bsdf_rev_pdf = bsdf_rev_pdf * cont
+                w_light = torch.clamp_min(bsdf_dir_pdf / torch.clamp_min(
+                    light_pick_prob * direct_pdf_w, 1e-30), 0.0)
+                w_camera = torch.clamp_min(
+                    emission_pdf_w * torch.clamp_min(cos_to_light, 0.0)
+                    / torch.clamp_min(direct_pdf_w * cos_at_light, 1e-30)
+                    * (mis_vm_w + dVCM + dVC * bsdf_rev_pdf), 0.0)
+                mis_weight = (1.0 / (w_light + 1.0 + w_camera)).detach()
+                geom_factor = (torch.clamp_min(cos_to_light, 0.0)
+                               / torch.clamp_min(
+                                   light_pick_prob * direct_pdf_w,
+                                   1e-30)).detach()
+                contrib = (mis_weight * geom_factor)[:, None] \
+                    * radiance * f * throughput
+                ok = connectable & (max3(radiance) > 0.0) & (max3(f) > 0.0)
+                shadow.append((dir_l, torch.where(
+                    ok, torch.maximum(ldist - 2 * eps, eps), 0.0), contrib,
+                    ok))
 
-        # vertex connections (vcm.h:315-400, loop :603-616)
-        if cfg.vcm_connect_vertices:
-            cam_cont = _cont_prob(bsdf, cfg)
-            if uniform:
-                # n_conn uniformly picked vertices of the whole store
-                for _ in range(n_conn):
-                    u = skey.next1()
-                    vi = torch.minimum(
-                        (u * n_valid.to(torch.float32)).to(torch.int32),
-                        torch.clamp_min(n_valid - 1, 0))
-                    lv = flat.map(lambda a: a[compact[vi.long()]])
-                    lv_bsdf = _rebuild_bsdf(scene, lv.mat, lv.ns, lv.ng,
-                                            lv.wo)
-                    shadow.append(_connect_vertices(
-                        bsdf, cam_cont, hit.position, throughput,
-                        dVCM, dVC, lv_bsdf, _cont_prob(lv_bsdf, cfg),
-                        lv.position, lv.throughput, lv.dVCM, lv.dVC,
-                        connectable & lv.valid & (n_valid > 0), mis_vm_w,
-                        eps, inv_vert_pick_pdf=inv_pick))
-            else:
-                for v in range(store_p.valid.shape[1]):
-                    shadow.append(_connect_vertices(
-                        bsdf, cam_cont, hit.position, throughput,
-                        dVCM, dVC, _map_bsdf(lv_bsdf_p, lambda a: a[:, v]),
-                        lv_cont_p[:, v], store_p.position[:, v],
-                        store_p.throughput[:, v], store_p.dVCM[:, v],
-                        store_p.dVC[:, v], connectable & store_p.valid[:, v],
-                        mis_vm_w, eps))
-        if shadow:
-            color = _add_unoccluded(scene, color, hit.position, tmin, shadow)
+            # vertex connections (vcm.h:315-400, loop :603-616)
+            if cfg.vcm_connect_vertices:
+                cam_cont = _cont_prob(bsdf, cfg)
+                if uniform:
+                    # n_conn uniformly picked vertices of the whole store
+                    for _ in range(n_conn):
+                        u = skey.next1()
+                        vi = torch.minimum(
+                            (u * n_valid.to(torch.float32)).to(torch.int32),
+                            torch.clamp_min(n_valid - 1, 0))
+                        lv = flat.map(lambda a: a[compact[vi.long()]])
+                        lv_bsdf = _rebuild_bsdf(scene, lv.mat, lv.ns, lv.ng,
+                                                lv.wo)
+                        shadow.append(_connect_vertices(
+                            bsdf, cam_cont, hit.position, throughput,
+                            dVCM, dVC, lv_bsdf, _cont_prob(lv_bsdf, cfg),
+                            lv.position, lv.throughput, lv.dVCM, lv.dVC,
+                            connectable & lv.valid & (n_valid > 0), mis_vm_w,
+                            eps, inv_vert_pick_pdf=inv_pick))
+                else:
+                    for v in range(store_p.valid.shape[1]):
+                        shadow.append(_connect_vertices(
+                            bsdf, cam_cont, hit.position, throughput, dVCM,
+                            dVC, _map_bsdf(lv_bsdf_p, lambda a: a[:, v]),
+                            lv_cont_p[:, v], store_p.position[:, v],
+                            store_p.throughput[:, v], store_p.dVCM[:, v],
+                            store_p.dVC[:, v],
+                            connectable & store_p.valid[:, v], mis_vm_w,
+                            eps))
+            if shadow:
+                color = _add_unoccluded(scene, color, hit.position, tmin,
+                                        shadow)
 
         # vertex merging (tech report sec. 5; SmallVCM merge)
         if cfg.vcm_use_vm:
