@@ -30,6 +30,28 @@ EPS_PHONG = 1e-3    # reference BxDF.h:265
 # component indices
 LAMBERTIAN, PHONG, SPEC_REFL, SPEC_TRANS = 0, 1, 2, 3
 N_COMPONENTS = 4
+FLT_MIN = torch.finfo(torch.float32).tiny   # the least normal float32
+
+
+def lobe_cdf(w: Tensor) -> Tensor:
+    """The first three running sums of the normalised pick probabilities
+    ``w`` [...,4], as [...,3] and detached: the pick is a comparison and
+    carries no gradient. Summed in float32 in ``jnp.cumsum``'s order, with
+    subnormal probabilities flushed to zero as the JAX package's CPU and
+    TPU backends flush them: its running sums bit for bit, and its picks
+    for every ``u0`` >= 0. (Torch's CPU ``cumsum`` accumulates in double,
+    and its CUDA scan is built for long rows, not rows of four.)"""
+    w = w.detach()[..., :3]
+    w = torch.where(w < FLT_MIN, 0.0, w)
+    c0 = w[..., 0]
+    c1 = c0 + w[..., 1]
+    return torch.stack([c0, c1, c1 + w[..., 2]], dim=-1)
+
+
+def pick_lobe(w: Tensor, u0: Tensor) -> Tensor:
+    """The component index ``u0`` [...] picks (int64): how many entries of
+    ``lobe_cdf(w)`` lie at or below it, so 3 where every ``w`` is 0."""
+    return torch.sum(u0[..., None] >= lobe_cdf(w), dim=-1)
 
 
 @dataclasses.dataclass
@@ -189,10 +211,8 @@ class BSDF:
         pick = self.pick_probs()           # sampling uses aSampleType=All
         pick_sum = torch.sum(pick, dim=-1)
         safe_sum = torch.where(pick_sum > 0.0, pick_sum, 1.0)
-        cdf = torch.cumsum(pick / safe_sum[..., None], dim=-1)
-        u0 = u3[..., 0]
-        idx = torch.sum((u0[..., None] >= cdf[..., :-1]).to(torch.int32),
-                        dim=-1)
+        w = pick / safe_sum[..., None]
+        idx = pick_lobe(w, u3[..., 0])
         u2 = u3[..., 1:3]
 
         # --- candidate: Lambertian (cosine hemisphere, local frame) ------
@@ -245,7 +265,6 @@ class BSDF:
 
         # --- combined pdf and f over matched components ------------------
         matched = self._matched_mask(world_gen)
-        w = pick / safe_sum[..., None]
 
         f_l, d_l, _ = self._lambertian_f_pdf(local_gen)
         f_p, d_p, _ = self._phong_f_pdf(local_gen)

@@ -9,11 +9,18 @@ multiplies that relative error by 90: the glossy material is held to rtol
 5e-5 (its largest difference measured 2.2e-5), and the cone sampler's
 1 - cos(theta) cancels at small angles: rtol 1e-4 there. Boolean
 decisions (validity, specularity, component picks) are compared exactly.
+
+The component pick is held to the JAX package's ``jnp.cumsum`` bit for
+bit on 2^20 lanes, its running sums and its choice, with ``u0`` on and
+one ulp beside each boundary; and ``BSDF.sample`` dispatches no scan.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from oppositerenderer_tpu import lights as jlights
 from oppositerenderer_tpu.bsdf import BSDF as JBSDF
@@ -22,6 +29,7 @@ from oppositerenderer_tpu.core import math as jm
 from oppositerenderer_tpu.core import sampling as js
 from oppositerenderer_tpu_torch import lights as tlights
 from oppositerenderer_tpu_torch.bsdf import BSDF as TBSDF
+from oppositerenderer_tpu_torch.bsdf import bsdf as tbsdf
 from oppositerenderer_tpu_torch.bsdf.fresnel import fresnel as tfresnel
 from oppositerenderer_tpu_torch.core import math as tm
 from oppositerenderer_tpu_torch.core import sampling as ts
@@ -187,3 +195,114 @@ def test_light_contribution_matches_jax():
           jlights.light_contribution(jt.row(jnp.asarray(idx)),
                                      *[jnp.asarray(a)
                                        for a in (pos, nrm, u2)]))
+
+
+LANES = 1 << 20
+
+
+def sampled_pick(b, u3):
+    """``b.sample(u3)`` and the ``(w, u0, idx)`` of the lobe pick in it."""
+    calls = []
+    pick_lobe = tbsdf.pick_lobe
+
+    def spy(w, u0):
+        calls.append((w, u0, pick_lobe(w, u0)))
+        return calls[-1][2]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbsdf, "pick_lobe", spy)
+        out = b.sample(u3)
+    (call,) = calls
+    return out, call
+
+
+@pytest.fixture(scope="module")
+def pick_lanes():
+    """A BSDF on 2^20 lanes and the normalised pick probabilities ``w``
+    its ``sample`` picks from. The lobes are grey, ior 1 and kr not
+    dielectric, so each pick probability is a lobe's luminance (times the
+    transmission's 1 - Fresnel). A lane holds each lobe with probability
+    1/2, so 1/16 of the lanes have none (pick sum 0) and 1/4 exactly one;
+    an eighth of the lobes are scaled by 1e-39 beside normal ones, which
+    makes their probabilities subnormal."""
+    rng = np.random.default_rng(24)
+    n = unit(rng, LANES)
+    wi = unit(rng, LANES)
+    wi = wi * np.sign(np.sum(wi * n, axis=1, keepdims=True))
+    grey = rng.random((LANES, 4), dtype=np.float32)
+    grey *= rng.random((LANES, 4)) < 0.5
+    grey *= np.where(rng.random((LANES, 4)) < 0.125, np.float32(1e-39),
+                     np.float32(1))
+    kd, ks, kr, kt = (np.repeat(grey[:, i:i + 1], 3, axis=1)
+                      for i in range(4))
+    args = [n, n.copy(), wi, kd, ks, np.full(LANES, 20, np.float32), kr, kt,
+            np.ones(LANES, np.float32), np.zeros(LANES, bool)]
+    b = TBSDF.make(*[torch.as_tensor(a) for a in args])
+    u3 = torch.as_tensor(rng.random((LANES, 3), dtype=np.float32))
+    _, (w, _, _) = sampled_pick(b, u3)
+    w = w.numpy()
+    present = w > 0
+    assert (~present.any(axis=1)).any() and (present.sum(axis=1) == 1).any()
+    assert (present & (w < np.finfo(np.float32).tiny)).any()
+    return b, w
+
+
+def test_lobe_cdf_is_jnp_cumsum_bit_for_bit(pick_lanes):
+    """Torch's CPU cumsum accumulates float32 in double, and its third
+    running sum misses jnp.cumsum's by an ulp on some lanes."""
+    _, w = pick_lanes
+    want = np.asarray(jnp.cumsum(jnp.asarray(w), axis=-1))[:, :3]
+    np.testing.assert_array_equal(tbsdf.lobe_cdf(torch.as_tensor(w)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("at,ulps", [("uniform", 0)] + [
+    (f"c{k}", d) for k in range(3) for d in (-1, 0, 1)])
+def test_sample_picks_the_jax_lobe_bit_for_bit(pick_lanes, at, ulps):
+    """``u0`` uniform, or on the JAX package's running sum c0, c1 or c2
+    moved by ``ulps`` float32 ulps (and held at 0 or above: a uniform)."""
+    b, w = pick_lanes
+    rng = np.random.default_rng(25)
+    cdf = jnp.cumsum(jnp.asarray(w), axis=-1)
+    u3 = rng.random((LANES, 3), dtype=np.float32)
+    if at != "uniform":
+        u0 = np.asarray(cdf)[:, int(at[1])]
+        if ulps:
+            u0 = np.nextafter(u0, np.float32(np.inf * ulps))
+        u3[:, 0] = np.maximum(u0, 0.0)
+    _, (w_seen, _, idx) = sampled_pick(b, torch.as_tensor(u3))
+    np.testing.assert_array_equal(w_seen.numpy(), w)
+    u0 = jnp.asarray(u3[:, 0])
+    want = jnp.sum((u0[..., None] >= cdf[..., :-1]).astype(jnp.int32),
+                   axis=-1)
+    assert idx.dtype == torch.int64
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+
+
+class AtenOps(TorchDispatchMode):
+    """The aten operators dispatched, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kd_grad", [False, True])
+def test_sample_dispatches_no_scan(kd_grad):
+    """Aten's innermost-dimension scan ran hundreds of times slower than
+    its data on the card for rows of four; with ``kd`` requiring grad the
+    pick still records no autograd node."""
+    _, tb, rng = make_pair("glossy", seed=24)
+    if kd_grad:
+        tb = dataclasses.replace(tb, kd=tb.kd.clone().requires_grad_())
+    u3 = torch.as_tensor(rng.random((N, 3), dtype=np.float32))
+    with AtenOps() as seen:
+        out, (w, _, idx) = sampled_pick(tb, u3)
+    assert "div" in seen.names and "sum" in seen.names
+    assert not {"cumsum", "cumsum_"} & seen.names
+    assert w.requires_grad == out.f.requires_grad == kd_grad
+    assert tbsdf.lobe_cdf(w).grad_fn is None and idx.grad_fn is None

@@ -18,7 +18,7 @@ as their plain versions in another order (a tile's slots in groups):
 rtol 1e-4 plus atol 1e-6 * max|ref|, with equal stats and tables.
 Through their zero-gradient Functions every kernel keeps these outputs
 and gives zero gradients; the PT and PPM gradients and a PPM iteration in
-a medium agree with the CPU port's.
+a medium agree with the CPU port's, and BSDF.sample picks the CPU's lobes.
 """
 import dataclasses
 import sys
@@ -194,6 +194,51 @@ def test_render_on_the_card_matches_the_cpu_render(cuda):
             2).mean_radiance().cpu().numpy())
     assert np.isfinite(imgs[1]).all()
     assert imgs[1].mean() == pytest.approx(imgs[0].mean(), rel=1e-3)
+
+
+def test_bsdf_sample_on_the_card_matches_the_cpu(cuda):
+    """At a PT bounce's 262,144 lanes of random materials (each lobe kind
+    present on half the lanes, glass hit from either side), the card picks
+    the CPU's component in every lane, with the same specularity and
+    validity; f and pdf_w agree at the render tests' rtol 1e-3."""
+    from oppositerenderer_tpu_torch.bsdf import BSDF
+    from oppositerenderer_tpu_torch.bsdf import bsdf as tbsdf
+    n = 262144
+    rng = np.random.default_rng(24)
+    dirs = rng.normal(size=(2, n, 3)).astype(np.float32)
+    nrm, wi = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    grey = rng.random((n, 4), dtype=np.float32)
+    grey *= rng.random((n, 4)) < 0.5
+    kd, ks, kr, kt = (np.repeat(grey[:, i:i + 1], 3, axis=1)
+                      for i in range(4))
+    args = [nrm, nrm.copy(), wi, kd, ks,
+            rng.uniform(1.0, 100.0, n).astype(np.float32), kr, kt,
+            rng.uniform(0.6, 1.7, n).astype(np.float32), rng.random(n) < 0.5]
+    u3 = rng.random((n, 3), dtype=np.float32)
+    pick_lobe, got = tbsdf.pick_lobe, []
+    for dev in ("cpu", cuda):
+        picks = []
+
+        def spy(w, u0):
+            picks.append(pick_lobe(w, u0))
+            return picks[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tbsdf, "pick_lobe", spy)
+            out = BSDF.make(*[torch.as_tensor(a, device=dev)
+                              for a in args]).sample(
+                torch.as_tensor(u3, device=dev))
+        (idx,) = picks
+        got.append({"idx": idx, **out._asdict()})
+    cpu, card = ({k: v.cpu().numpy() for k, v in g.items()} for g in got)
+    assert card["valid"].any() and card["is_specular"].any()
+    assert len(np.unique(card["idx"])) == 4
+    for k in ("idx", "is_specular", "valid"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    for k in ("f", "pdf_w"):
+        assert np.isfinite(card[k]).all()
+        agree = np.isclose(card[k], cpu[k], rtol=1e-3, atol=0)
+        assert agree.reshape(n, -1).all(axis=-1).mean() >= 0.99, k
 
 
 @pytest.mark.parametrize("case", ["synthetic", "no_normal", "clustered"])
