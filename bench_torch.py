@@ -43,6 +43,8 @@ from pathlib import Path
 
 import torch
 
+from oppositerenderer_tpu_torch.devices import card_line
+
 REPO = Path(__file__).resolve().parent
 CASES = ("pt", "ppm", "vcm", "vcm_vm", "atrium_pt", "conference_pt")
 
@@ -110,14 +112,6 @@ def _load_ok():
               f"{LOAD_THRESHOLD} - a competing process is running; numbers "
               "are contended", file=sys.stderr)
     return load1, ok
-
-
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0]
 
 
 def _sync(device: torch.device) -> None:

@@ -25,7 +25,6 @@ sys.path.insert(0, str(REPO))
 
 import bench  # noqa: E402
 import bench_torch  # noqa: E402
-import chip_smoke  # noqa: E402
 from oppositerenderer_tpu.config import RenderConfig as JConfig  # noqa: E402
 from oppositerenderer_tpu_torch import config  # noqa: E402
 from oppositerenderer_tpu_torch.config import RenderConfig  # noqa: E402
@@ -72,10 +71,18 @@ def test_ray_accounting_equals_bench(case):
 
 
 def test_chip_smoke_keeps_no_copy_of_the_accounting():
-    for name in ACCOUNTING + ("card_line", "launch_counts"):
-        assert getattr(chip_smoke, name) is getattr(bench_torch, name), name
+    """One ``card_line``, the port's ``devices.card_line``, which
+    bench_torch imports, and one ray accounting, bench_torch's: neither
+    chip_smoke.py (read, not imported) nor bench_torch.py defines another."""
+    from oppositerenderer_tpu_torch import devices
+    assert bench_torch.card_line is devices.card_line
+    for path in ("chip_smoke.py", "bench_torch.py"):
+        src = (REPO / path).read_text()
+        assert not re.search(r"^def card_line\b", src, re.M), path
     src = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"^def \w*rays_per_iteration", src, re.M)
+    for name in ACCOUNTING:
+        assert name in vars(bench_torch), name
 
 
 @pytest.fixture(scope="module")
@@ -228,11 +235,13 @@ def test_vcm_modes_prints_four_modes_with_the_jax_store_formula(capsys):
 
 
 def test_the_port_imports_nothing_of_jax():
-    """No module of the port, nor its top-level scripts, imports JAX, the
-    JAX bench or the JAX package."""
+    """No module of the port, nor its top-level scripts and the test data
+    the kernel table shares with the card tests, imports JAX, the JAX
+    bench or the JAX package."""
     files = sorted((REPO / "oppositerenderer_tpu_torch").rglob("*.py"))
     files += [REPO / f for f in ("chip_smoke.py", "bench_torch.py",
-                                 "milestone4_torch.py", "kernel_variants.py")]
+                                 "milestone4_torch.py",
+                                 "tests/_torch_cases.py")]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

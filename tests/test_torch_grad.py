@@ -28,7 +28,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from oppositerenderer_tpu import diff as jdiff
 from oppositerenderer_tpu.config import RenderConfig as JConfig
 from oppositerenderer_tpu.core.rng import make_root_key as jkey
@@ -247,7 +247,7 @@ def test_intersection_kernels_give_zero_gradients():
     boolean outputs outside it."""
     scene, _ = get_scene_by_name("CornellSmall", "cpu")
     tris, occ = dense_tables(scene)
-    o, d, tmin, tmax = chip_smoke._rays(2048, 3, scene.aabb_min.tolist(),
+    o, d, tmin, tmax = _torch_cases._rays(2048, 3, scene.aabb_min.tolist(),
                                         scene.aabb_max.tolist(), "cpu")
     og, dg = o.clone().requires_grad_(), d.clone().requires_grad_()
     out = ik.closest_hit_tris(og, dg, tmin, tmax, tris)
@@ -264,7 +264,7 @@ def test_intersection_kernels_give_zero_gradients():
     assert torch.equal(hit, ik.occluded_tris_plain(o, d, tmin, tmax, occ))
 
     bscene, _ = get_scene_by_name("Atrium:0.1", "cpu")
-    o, d, tmin, tmax = chip_smoke._rays(512, 4, bscene.aabb_min.tolist(),
+    o, d, tmin, tmax = _torch_cases._rays(512, 4, bscene.aabb_min.tolist(),
                                         bscene.aabb_max.tolist(), "cpu")
     og = o.clone().requires_grad_()
     t, prim, u, v, found = bk.traverse(bscene.bvh, og, d, tmin, tmax)
@@ -319,7 +319,7 @@ def test_tile_merge_gives_zero_gradient_and_budgeted_merge_full():
     CPU) have a zero gradient in the camera BSDF's kd; the camera
     throughput outside keeps its gradient. The budgeted merge, which a
     round takes when its vertices do not tile by 256, carries both."""
-    scene, cfg, k = chip_smoke.vm_case("cpu")
+    scene, cfg, k = _torch_cases.vm_case("cpu")
     n = k["cam_pos"].shape[0]
     assert n % gk.TILE == 0
     grads = {}

@@ -326,15 +326,15 @@ def test_default_camera_frames_the_box(dae_file):
 
 # ------------------------------------------------------ the chip scripts
 def test_chip_smoke_and_milestone_inputs_are_the_tests_and_jax_ones():
-    """chip_smoke.py's import-parity DAE is tests/test_import.py's, and
+    """The card tests' small DAE is tests/test_import.py's, and
     milestone4_torch.py renders the JAX package's default configuration
     at 1024^2, as scripts/milestone4.py does (its TPU dispatch fields
     aside, which the port does not have)."""
-    import chip_smoke
+    import _torch_cases
     import milestone4_torch as m4
 
     from oppositerenderer_tpu.config import RenderMethod as JMethod
-    assert chip_smoke.SMALL_DAE == DAE
+    assert _torch_cases.SMALL_DAE == DAE
     assert (m4.SIZE, m4.SCENES, m4.METHODS) == (
         1024, ("Atrium", "Conference"), ("ppm", "vcm"))
     for method, jmethod in (("ppm", JMethod.PROGRESSIVE_PHOTON_MAPPING),

@@ -23,7 +23,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from oppositerenderer_tpu.camera import Camera as JCamera
 from oppositerenderer_tpu.config import RenderConfig as JConfig
 from oppositerenderer_tpu.core import math as jmath
@@ -239,8 +239,8 @@ def test_volumetric_radiance_estimate_matches_jax(weighted):
 
 
 def test_chip_smoke_renders_jax_test_medium():
-    """chip_smoke's media phases render in tests/test_media.py's medium."""
-    got, want = chip_smoke.scene_medium("cpu"), port_medium()
+    """The card tests' medium is tests/test_media.py's."""
+    got, want = _torch_cases.scene_medium("cpu"), port_medium()
     for f in ("sigma_s", "sigma_a", "aabb_min", "aabb_max"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 

@@ -22,7 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "scripts"))
 
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from make_goldens import ITERS, SEED as GOLDEN_SEED, golden_config  # noqa
 
 from oppositerenderer_tpu.config import RenderConfig as JConfig  # noqa: E402
@@ -250,20 +250,22 @@ def test_later_slices_raise():
 
 
 def test_chip_smoke_configs_are_the_jax_ones():
-    """ppm-goldens renders the JAX golden PPM configuration; ppm-main the
-    JAX bench's PPM case (bench.py:232-235) at 512^2."""
+    """The golden PPM configuration of the card tests is JAX's; the main
+    PPM configuration of the kernel table is the JAX bench's PPM case
+    (bench.py:232-235) at 512^2, with its ray accounting."""
+    import bench_torch
     want = golden_config("ppm")
-    got = chip_smoke.golden_ppm_config()
+    got = _torch_cases.golden_ppm_config()
     for f in RenderConfig.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
-    assert (chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_PPM_ITERS) == (
+    assert (_torch_cases.GOLDEN_SEED, _torch_cases.GOLDEN_PPM_ITERS) == (
         GOLDEN_SEED, ITERS["ppm"])
-    main = chip_smoke.ppm_main_config()
+    main = _torch_cases.ppm_main_config()
     bench = JConfig(width=512, height=512, render_method=PPM,
                     photons_per_iteration=1 << 20)
     for f in RenderConfig.__dataclass_fields__:
         assert getattr(main, f) == getattr(bench, f), f
-    assert chip_smoke.ppm_rays_per_iteration(main) == (
+    assert bench_torch.ppm_rays_per_iteration(main) == (
         512 * 512 * (9 + 4) + (1 << 20) * 7)
 
 

@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "scripts"))
 
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from make_goldens import ITERS, SEED, golden_config  # noqa: E402
 from oppositerenderer_tpu import renderer as jrenderer  # noqa: E402
 from oppositerenderer_tpu.config import RenderConfig as JConfig  # noqa: E402
@@ -57,10 +57,10 @@ def test_one_iteration_matches_jax_pixel_by_pixel():
 
 def test_golden_config_is_the_jax_one():
     want = golden_config("pt")
-    got = chip_smoke.golden_pt_config()
+    got = _torch_cases.golden_pt_config()
     for f in RenderConfig.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
-    assert (chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_ITERS) == (SEED,
+    assert (_torch_cases.GOLDEN_SEED, _torch_cases.GOLDEN_ITERS) == (SEED,
                                                                  ITERS["pt"])
 
 
@@ -72,15 +72,15 @@ def test_matches_pt_golden(name):
     way at that z-fight (8 of 4096 measured); the image mean must still
     agree within ``GOLDEN_MEAN_RTOL``."""
     scene, cam = get_scene_by_name(name, "cpu")
-    r = Renderer(scene, cam, chip_smoke.golden_pt_config(),
-                 seed=chip_smoke.GOLDEN_SEED)
-    img = r.render(chip_smoke.GOLDEN_ITERS).mean_radiance().numpy()
+    r = Renderer(scene, cam, _torch_cases.golden_pt_config(),
+                 seed=_torch_cases.GOLDEN_SEED)
+    img = r.render(_torch_cases.GOLDEN_ITERS).mean_radiance().numpy()
     assert np.isfinite(img).all()
-    want = np.load(chip_smoke.GOLDENS)[f"{name}__pt"].astype(np.float32)
-    bad, worst, mean_err = chip_smoke.golden_agreement(img, want)
-    assert bad <= (chip_smoke.GOLDEN_MAX_FLIPPED if name == "Cornell"
+    want = np.load(_torch_cases.GOLDENS)[f"{name}__pt"].astype(np.float32)
+    bad, worst, mean_err = _torch_cases.golden_agreement(img, want)
+    assert bad <= (_torch_cases.GOLDEN_MAX_FLIPPED if name == "Cornell"
                    else 0), (bad, worst)
-    assert mean_err <= chip_smoke.GOLDEN_MEAN_RTOL
+    assert mean_err <= _torch_cases.GOLDEN_MEAN_RTOL
 
 
 def small_renderer(**kw):

@@ -23,7 +23,7 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "scripts"))
 
 import bench  # noqa: E402
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from make_goldens import ITERS, SEED as GOLDEN_SEED, golden_config  # noqa
 from oppositerenderer_tpu import lights as jlights  # noqa: E402
 from oppositerenderer_tpu.config import RenderConfig as JConfig  # noqa: E402
@@ -265,15 +265,15 @@ def test_matches_vcm_golden(name):
     other way there (18 of 4096 measured), the image mean within
     ``GOLDEN_MEAN_RTOL``."""
     scene, cam = get_scene_by_name(name, "cpu")
-    r = Renderer(scene, cam, chip_smoke.golden_vcm_config(),
-                 seed=chip_smoke.GOLDEN_SEED)
-    img = r.render(chip_smoke.GOLDEN_VCM_ITERS).mean_radiance().numpy()
+    r = Renderer(scene, cam, _torch_cases.golden_vcm_config(),
+                 seed=_torch_cases.GOLDEN_SEED)
+    img = r.render(_torch_cases.GOLDEN_VCM_ITERS).mean_radiance().numpy()
     assert np.isfinite(img).all()
-    want = np.load(chip_smoke.GOLDENS)[f"{name}__vcm"].astype(np.float32)
-    bad, worst, mean_err = chip_smoke.golden_agreement(img, want)
-    assert bad <= (chip_smoke.VCM_GOLDEN_MAX_FLIPPED if name == "Cornell"
+    want = np.load(_torch_cases.GOLDENS)[f"{name}__vcm"].astype(np.float32)
+    bad, worst, mean_err = _torch_cases.golden_agreement(img, want)
+    assert bad <= (_torch_cases.VCM_GOLDEN_MAX_FLIPPED if name == "Cornell"
                    else 0), (bad, worst)
-    assert mean_err <= chip_smoke.GOLDEN_MEAN_RTOL
+    assert mean_err <= _torch_cases.GOLDEN_MEAN_RTOL
 
 
 @pytest.mark.parametrize("flags", [
@@ -396,22 +396,23 @@ def test_cli_renders_vcm_by_default(tmp_path, capsys):
 
 
 def test_chip_smoke_configs_are_the_jax_ones():
-    """vcm-goldens renders the JAX golden VCM configuration; vcm-main and
-    vcm-vm-main the JAX bench's VCM cases (bench.py:236-243) at 512^2, with
-    its ray accounting."""
+    """The golden VCM configuration of the card tests is JAX's; the main
+    VCM configurations of the kernel table are the JAX bench's VCM cases
+    (bench.py:236-243) at 512^2, with its ray accounting."""
+    import bench_torch
     want = golden_config("vcm")
-    got = chip_smoke.golden_vcm_config()
+    got = _torch_cases.golden_vcm_config()
     for f in RenderConfig.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
-    assert (chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_VCM_ITERS) == (
+    assert (_torch_cases.GOLDEN_SEED, _torch_cases.GOLDEN_VCM_ITERS) == (
         GOLDEN_SEED, ITERS["vcm"])
     for use_vm in (False, True):
-        main = chip_smoke.vcm_main_config(use_vm)
+        main = _torch_cases.vcm_main_config(use_vm)
         ref = JConfig(width=512, height=512, render_method=VCM,
                       vcm_use_vm=use_vm)
         for f in RenderConfig.__dataclass_fields__:
             assert getattr(main, f) == getattr(ref, f), f
-        assert chip_smoke.vcm_rays_per_iteration(main) == \
+        assert bench_torch.vcm_rays_per_iteration(main) == \
             bench.vcm_rays_per_iteration(ref)
 
 

@@ -2,7 +2,7 @@
 vertex grid, the query table, the budgeted merge, B4's plain version, and
 one VCM+VM iteration.
 
-The merge inputs come from numpy (``chip_smoke.vm_case_arrays``: the
+The merge inputs come from numpy (``_torch_cases.vm_case_arrays``: the
 synthetic setup of ``tests/test_vcm_vm.py`` and a clustered variant that
 subsamples rows and chunks) and go into both packages; JAX's vertex grid
 reaches the port through ``interop``, so both merge the same vertices.
@@ -25,7 +25,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import chip_smoke  # noqa: E402
+import _torch_cases  # noqa: E402
 from oppositerenderer_tpu.accel import pallas_vm as jpv  # noqa: E402
 from oppositerenderer_tpu.bsdf import BSDF as JBSDF  # noqa: E402
 from oppositerenderer_tpu.config import RenderConfig as JConfig  # noqa: E402
@@ -69,7 +69,7 @@ def jax_cfg(**kw):
 
 
 def jax_case(seed, cluster, **cfg_kw):
-    """The JAX side of ``chip_smoke.vm_case``: the same numpy arrays as a
+    """The JAX side of ``_torch_cases.vm_case``: the same numpy arrays as a
     JAX light-vertex store and grid and a JAX camera BSDF; the grid does
     not depend on ``cfg_kw``."""
     return (jax_cfg(**cfg_kw),) + _jax_case(seed, cluster)
@@ -77,7 +77,7 @@ def jax_case(seed, cluster, **cfg_kw):
 
 @functools.cache
 def _jax_case(seed, cluster):
-    a = chip_smoke.vm_case_arrays(seed, cluster)
+    a = _torch_cases.vm_case_arrays(seed, cluster)
     scene, _ = jax_scene("CornellSmall")
     mat = int(np.asarray(jnp.argmax(scene.materials.kd.sum(axis=-1))))
     st = a["store"]
@@ -124,7 +124,7 @@ def jax_tiled(cfg, vgrid, k, interpret=True):
 
 
 def port_merge(cluster, seed=0, vgrid=None, n=None, **cfg_kw):
-    scene, cfg, k = chip_smoke.vm_case("cpu", seed, cluster)
+    scene, cfg, k = _torch_cases.vm_case("cpu", seed, cluster)
     cfg = cfg.replace(**cfg_kw)
     if vgrid is not None:
         k["vgrid"] = vgrid
@@ -179,7 +179,7 @@ def test_build_vertex_grid_is_bit_identical(light_store):
 
 def test_build_vertex_grid_of_the_clustered_case_is_bit_identical():
     _, _, _, want, _ = jax_case(0, True)
-    _, _, k = chip_smoke.vm_case("cpu", 0, True)
+    _, _, k = _torch_cases.vm_case("cpu", 0, True)
     for f in interop.VERTEX_GRID_ARRAYS:
         np.testing.assert_array_equal(getattr(k["vgrid"], f).numpy(),
                                       np.asarray(getattr(want, f)),
@@ -191,7 +191,7 @@ def test_packed_records_equal_the_grid_fields(cluster):
     """B4's kernel reads VertexGrid.packed: each vertex's fields, in
     (position, dVCM), (wo, dVM), (throughput, cont), (depth, x, 0, 0), x
     the x index of the grid cell that holds the vertex."""
-    _, _, k = chip_smoke.vm_case("cpu", 0, cluster)
+    _, _, k = _torch_cases.vm_case("cpu", 0, cluster)
     g = k["vgrid"]
     p = g.packed
     assert p.shape == (g.position.shape[0], vk.RECORD)
@@ -219,7 +219,7 @@ def test_slot_rows_hold_the_staged_windows(cluster):
     """``_tile_tables``' slot rows: each non-empty window lies in the cells
     of its (y,z) row, between the starts of the tile box's x cells, which
     is what B4's kernel assumes when it cuts a window to a warp's box."""
-    scene, cfg, k = chip_smoke.vm_case("cpu", 0, cluster)
+    scene, cfg, k = _torch_cases.vm_case("cpu", 0, cluster)
     n = k["cam_pos"].shape[0]
     u_rows = k["u_stride"].reshape(n // vk.TILE, vk.TILE)[:, :vk.ROWS + 2]
     _, (starts, lens, _, rows, _, qtab, g), _, _ = vk.merge_tables(
@@ -244,7 +244,7 @@ def test_slot_rows_hold_the_staged_windows(cluster):
 
 def test_query_table_matches_jax():
     _, _, _, _, jk = jax_case(0, True)
-    _, _, k = chip_smoke.vm_case("cpu", 0, True)
+    _, _, k = _torch_cases.vm_case("cpu", 0, True)
     a_cam = k["cam_dVCM"] * 0.25
     b_cam = k["cam_dVM"] * k["cam_bsdf"].continuation_prob()
     got = vk._query_table(k["cam_bsdf"], k["cam_pos"], a_cam, b_cam,
@@ -273,7 +273,7 @@ def test_tile_merge_plain_matches_jax_tile_kernel(cluster):
 
 
 def test_clustered_case_subsamples_rows_and_chunks():
-    scene, cfg, k = chip_smoke.vm_case("cpu", 0, True)
+    scene, cfg, k = _torch_cases.vm_case("cpu", 0, True)
     n = k["cam_pos"].shape[0]
     u_rows = k["u_stride"].reshape(n // vk.TILE, vk.TILE)[:, :vk.ROWS + 2]
     _, args, _, _ = vk.merge_tables(
@@ -327,7 +327,7 @@ def test_cpu_merge_runs_the_plain_version_without_a_launch():
     got = port_merge(True)
     assert vk.merge_vertices_tiled.launches == before
     assert got.shape == (512, 3) and bool(torch.isfinite(got).all())
-    scene, cfg, k = chip_smoke.vm_case("cpu", 0, True)
+    scene, cfg, k = _torch_cases.vm_case("cpu", 0, True)
     with pytest.raises(ValueError, match="multiple"):
         vk.merge_vertices_tiled(
             k["vgrid"], cfg, vcm._map_bsdf(k["cam_bsdf"], lambda a: a[:300]),
@@ -337,7 +337,7 @@ def test_cpu_merge_runs_the_plain_version_without_a_launch():
 
 
 def test_kernel_wrapper_checks_its_inputs():
-    scene, cfg, k = chip_smoke.vm_case("cpu", 0, False)
+    scene, cfg, k = _torch_cases.vm_case("cpu", 0, False)
     u_rows = k["u_stride"].reshape(1, vk.TILE)[:, :vk.ROWS + 2]
     _, args, _, _ = vk.merge_tables(
         k["vgrid"], cfg, k["cam_bsdf"], k["cam_pos"], k["cam_dVCM"],
