@@ -19,8 +19,9 @@ and the script exits non-zero without printing the result line:
                  and PIL's version (or "absent").
 2. build       - one nvcc per source, all started together, compiles
                  ``csrc/intersect.cu``, ``csrc/gather.cu``, ``csrc/vm.cu``,
-                 ``csrc/bvh.cu``, ``csrc/packet_exp.cu``, ``csrc/kd_stage.cu``
-                 and ``csrc/rows.cu`` for sm_90a, and one more links them into
+                 ``csrc/bvh.cu``, ``csrc/packet_exp.cu``, ``csrc/kd_stage.cu``,
+                 ``csrc/rows.cu`` and ``csrc/rng.cu`` for sm_90a, and one
+                 more links them into
                  one library; prints its cache key, the build time and
                  ptxas' registers and spills. Then g++ must build the
                  host libraries (``native/bvh_builder.cpp``,
@@ -76,7 +77,17 @@ and the script exits non-zero without printing the result line:
                  their plain version, aten's accumulate, at rtol 1e-5 and
                  repeatable bit for bit, timed against their bound (bytes),
                  the plain version and ``index_put_(accumulate=True)``
-                 alone.
+                 alone. Threefry's three entry points against their
+                 plain version (the int64 chain on the same CUDA tensors)
+                 bit for bit, each timed against its bound (bytes, or
+                 INT32 operations) and the plain version, enqueued from
+                 the host and replayed from a graph: the draw (a
+                 LaneSampler's next3) at 262,144 and 2^20 lanes under a
+                 0-d device key and under 4 groups' per-lane keys; the
+                 key folds (iteration_key and fold_in_range on device
+                 keys; a 0-d fold and a vector of 10); rng.uniform at
+                 2^20 and 0-d. Then each wrapper's launches in one PT,
+                 PPM and VCM iteration, equal to its capture's.
 4. b6          - the packet node-step microbenchmark's kernel (B6) in each
                  of its nine variants against its plain version bit for
                  bit at the defaults (64 tiles, 64 steps, 49,152 rows) and
@@ -152,6 +163,9 @@ B6_SCRIPT_REPS = 5
 # x 1.98 GHz = 33.5e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 33.5e12
+# 32-bit integer instructions/s outside the tensor cores: 64 INT32 lanes
+# an SM x 132 SMs x 1.98 GHz (NVIDIA's Hopper white paper)
+PEAK_INT32_PER_S = 16.7e12
 # FP32 operations counted per unit of work for the bounds: one
 # Moller-Trumbore test (9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 arithmetic
 # operations, comparisons not counted); one child's slab test (6 sub, 6
@@ -160,6 +174,23 @@ PEAK_FP32_PER_S = 33.5e12
 MT_FLOPS = 46
 SLAB_FLOPS = 24
 PAIR_FLOPS = 8
+# INT32 operations a threefry block, about: 20 rounds of an add, a funnel
+# shift and an xor (60), the key's parity word (2 xors), six key
+# injections (12 to 17 adds: a round constant may take a three-input add)
+# and the draw's shift and conversion (2)
+TF_INT_OPS = 80
+# the draws timed: a next3 (two blocks a lane) at the PT path's lanes and
+# at PPM's photon pass's, under one 0-d key and under the per-lane keys of
+# RNG_GROUPS iterations stacked in one wavefront (N / RNG_GROUPS lanes
+# each, as a batched PT's)
+RNG_DRAW_LANES = (MAIN_SIZE * MAIN_SIZE, 1 << 20)
+RNG_GROUPS = 4
+# the key folds timed: a fold of a 0-d key (each half of iteration_key) and
+# fold_in_range's vector at VCM's camera pass's count (L = 10 depth keys)
+RNG_FOLD_RANGE = (4001, 10)
+# rng.uniform's flat form: the stochastic hash map's priorities (one a
+# photon, 2^20) and a 0-d draw (the all-to-all exchange's)
+RNG_UNIFORM_SHAPES = ((1 << 20,), ())
 
 KERNELS = {
     "closest_hit_tris": "oppositerenderer_tpu/accel/pallas_intersect_t.py:56",
@@ -170,6 +201,7 @@ KERNELS = {
     "traverse_any": "oppositerenderer_tpu/accel/pallas_bvh.py:55",
     "packet_steps": "scripts/packet_kernel_exp.py:124",
     "sum_rows": "none: the table-row gather's backward, aten's accumulate",
+    "threefry_draw": "none: jax.random's threefry, which XLA fuses",
 }
 KERNEL_SOURCES = {
     "closest_hit_tris": "oppositerenderer_tpu_torch/csrc/intersect.cu",
@@ -180,15 +212,17 @@ KERNEL_SOURCES = {
     "traverse_any": "oppositerenderer_tpu_torch/csrc/bvh.cu",
     "packet_steps": "oppositerenderer_tpu_torch/csrc/packet_exp.cu",
     "sum_rows": "oppositerenderer_tpu_torch/csrc/rows.cu",
+    "threefry_draw": "oppositerenderer_tpu_torch/csrc/rng.cu",
 }
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float,
+          ops_per_s: float = PEAK_FP32_PER_S) -> dict:
     """The least time the card could take for the work: the larger of the
-    bytes over the HBM rate and the FP32 operations over the FP32
-    instruction rate."""
+    bytes over the HBM rate and the operations over their instruction
+    rate (FP32's unless given)."""
     ms_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ms_ops = flops / PEAK_FP32_PER_S * 1e3
+    ms_ops = flops / ops_per_s * 1e3
     return {"bound_ms": max(ms_bytes, ms_ops),
             "bound_by": "bytes" if ms_bytes >= ms_ops else "operations",
             "library_ms": None}
@@ -411,6 +445,150 @@ def phase_kernels(dev) -> dict:
     out.update(bvh_kernel_cases(dev))
     flagship_iterations(dev, out)
     out["sum_rows"] = row_sum_cases(dev)
+    out["threefry_draw"] = rng_draw_cases(dev)
+    return out
+
+
+def _rng_timed(label: str, kernel, plain, n_bytes: float, n_ops: float
+               ) -> dict:
+    """One threefry shape's row: the kernel (graph replays), its bound
+    (``n_bytes`` over the bytes rate, ``n_ops`` INT32 operations over the
+    INT32 rate) and the plain version, enqueued from the host
+    (``plain_ms``) and replayed from a graph as a captured step runs it
+    (``plain_graph_ms``); printed under ``label``."""
+    row = {"ms": cuda_ms(kernel),
+           **bound(n_bytes, n_ops, PEAK_INT32_PER_S),
+           "plain_ms": cuda_ms(plain, batch=1, graph=False),
+           "plain_graph_ms": cuda_ms(plain, batch=1)}
+    print(f"[kernels] threefry {label}: equal to plain bit for bit; kernel "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}), plain {row['plain_ms']:.4f} (enqueued), "
+          f"{row['plain_graph_ms']:.4f} (a graph)")
+    return row
+
+
+def _same_words(label: str, got, want) -> None:
+    for g, w in zip(got, want):
+        if not torch.equal(torch.as_tensor(g), torch.as_tensor(w)):
+            raise AssertionError(f"threefry {label} differs from its plain "
+                                 f"version")
+
+
+def rng_draw_cases(dev) -> dict:
+    """The three entry points of ``csrc/rng.cu`` at the shapes the main
+    paths give them, each equal to its plain version (the int64 chain of
+    ``core/rng.py`` on the same CUDA tensors) bit for bit and timed
+    (:func:`_rng_timed`):
+
+    * ``threefry_draw``: a LaneSampler's next3 of N lanes from column
+      counter 7, N in :data:`RNG_DRAW_LANES`, under a 0-d device key
+      (``iteration_key`` of a device root and iteration, as a captured
+      step derives it) and under per-lane keys (``lane_key_words`` of
+      :data:`RNG_GROUPS` keys); bound: the lane ids (and keys) in and the
+      floats out, two blocks a lane of :data:`TF_INT_OPS`. The first
+      shape's figures are the row's.
+    * ``threefry_words`` (``folds``): ``iteration_key`` and
+      ``fold_in_range`` on device keys checked as the integrators call
+      them; timed, a fold of a 0-d key and the vector of
+      :data:`RNG_FOLD_RANGE`.
+    * ``threefry_uniform`` (``uniform``): ``rng.uniform`` at
+      :data:`RNG_UNIFORM_SHAPES`.
+
+    ``launches``: each wrapper's launches in one iteration of the PT, PPM
+    and VCM paths (:func:`rng_iteration_launches`)."""
+    from oppositerenderer_tpu_torch.accel import rng_kernels as nk
+    from oppositerenderer_tpu_torch.core import rng as trng
+    root = trng.device_key(trng.make_root_key(2**31 + 26), dev)
+    it = torch.full((), 3, dtype=torch.int64, device=dev)
+    key = trng.iteration_key(root, it, 1)
+    plain_key = trng.threefry2x32_plain(
+        *trng.threefry2x32_plain(*root, 0, 1), 0, it)
+    _same_words("iteration_key on a device key", key, plain_key)
+    out = {"shapes": {}, "folds": {}, "uniform": {}}
+    for n in RNG_DRAW_LANES:
+        lanes = torch.arange(n, dtype=torch.int64, device=dev)
+        per_lane = trng.lane_key_words(
+            [trng.fold_in(key, g) for g in range(RNG_GROUPS)],
+            n // RNG_GROUPS, dev)
+        for form, (k0, k1), key_bytes in (
+                ("a 0-d key", key, 0),
+                (f"{RNG_GROUPS} groups' per-lane keys", per_lane, 2 * n * 8)):
+            label = f"draw {n} x 3 under {form}"
+
+            def kernel():
+                return nk.threefry_draw(lanes, k0, k1, 7, 3)
+
+            def plain():
+                return trng.lane_uniform_plain(k0, k1, lanes, 7, 3)
+
+            _same_words(label, [kernel().view(torch.int32)],
+                        [plain().view(torch.int32)])
+            out["shapes"][f"{n} x 3, {form}"] = _rng_timed(
+                label, kernel, plain, n * 8 + key_bytes + n * 3 * 4,
+                2 * n * TF_INT_OPS)
+    out.update(out["shapes"][f"{RNG_DRAW_LANES[0]} x 3, a 0-d key"])
+
+    start, count = RNG_FOLD_RANGE
+    data = torch.arange(start, start + count, dtype=torch.int64, device=dev)
+    _same_words(f"fold_in_range({start}, {count}) on a device key",
+                [torch.stack(w) for w in zip(*trng.fold_in_range(
+                    key, start, count))],
+                trng.threefry2x32_plain(*key, 0, data))
+    for label, x1, m in (("fold of a 0-d key", it, 1),
+                         (f"fold_in_range vector of {count}", data, count)):
+        _same_words(label, nk.threefry_words(*key, 0, x1),
+                    trng.threefry2x32_plain(*key, 0, x1))
+        out["folds"][label] = _rng_timed(
+            label, lambda: nk.threefry_words(*key, 0, x1),
+            lambda: trng.threefry2x32_plain(*key, 0, x1),
+            (2 + 3 * m) * 8, m * TF_INT_OPS)
+
+    for shape in RNG_UNIFORM_SHAPES:
+        n = int(np.prod(shape))
+        label = f"uniform {shape}"
+        _same_words(label, [trng.uniform(key, shape, dev).view(torch.int32)],
+                    [trng.uniform_plain(key, n, dev).reshape(shape)
+                     .view(torch.int32)])
+        out["uniform"][label] = _rng_timed(
+            label, lambda: nk.threefry_uniform(*key, n, dev),
+            lambda: trng.uniform_plain(key, n, dev), 2 * 8 + n * 4,
+            n * TF_INT_OPS)
+    out["launches"] = rng_iteration_launches(dev)
+    return out
+
+
+def rng_iteration_launches(dev) -> dict:
+    """Each threefry wrapper's launches in one CornellSmall 512^2 iteration
+    of PT, PPM and VCM (the configurations of :func:`closest_hit_calls`):
+    the counters set to 0 just before a fresh Renderer's first
+    ``render(1)``, whose eager iteration launches once for each tensor
+    call, then read; the capture that follows must hold as many."""
+    from oppositerenderer_tpu_torch.accel import rng_kernels as nk
+    from oppositerenderer_tpu_torch.config import RenderConfig
+    from oppositerenderer_tpu_torch.renderer import Renderer
+    from oppositerenderer_tpu_torch.scene import get_scene_by_name
+    wrappers = (nk.threefry_draw, nk.threefry_words, nk.threefry_uniform)
+    out = {}
+    for method, cfg in (
+            ("PT", RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE)),
+            ("PPM", ppm_main_config()), ("VCM", vcm_main_config())):
+        r = Renderer(*get_scene_by_name(MAIN_SCENE, dev), cfg, seed=0)
+        for w in wrappers:
+            w.launches = 0
+        r.render(1)
+        torch.cuda.synchronize(dev)
+        launched = {w.__name__: w.launches for w in wrappers}
+        captured = {w.__name__: r.captured_step.capture_launches[w.__name__]
+                    for w in wrappers}
+        if launched != captured or not launched["threefry_draw"]:
+            raise AssertionError(f"{method}: threefry launches in the eager "
+                                 f"iteration {launched}, in its capture "
+                                 f"{captured}")
+        print(f"[kernels] threefry launches per {MAIN_SCENE} {MAIN_SIZE}^2 "
+              f"{method} iteration: {launched}")
+        out[f"{MAIN_SCENE} {MAIN_SIZE}^2 {method}"] = launched
+        del r
+        torch.cuda.empty_cache()
     return out
 
 

@@ -8,8 +8,8 @@ name carries a key that hashes the flags and every source, so an edit to
 any kernel rebuilds it. The package imports without ``nvcc``; a CUDA call
 without it raises. The wrappers (``intersect_kernels``,
 ``gather_kernels``, ``vm_kernels``, ``bvh_kernels``,
-``packet_exp_kernels``, ``row_kernels``) take their entry points from
-:func:`library`, as does the kd-tree's stream-ordered host build
+``packet_exp_kernels``, ``row_kernels``, ``rng_kernels``) take their
+entry points from :func:`library`, as does the kd-tree's stream-ordered host build
 (``csrc/kd_stage.cu``, ``photon_map.KdHostStage``).
 """
 from __future__ import annotations
@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("intersect.cu", "gather.cu", "vm.cu",
                              "bvh.cu", "packet_exp.cu", "kd_stage.cu",
-                             "rows.cu"))
+                             "rows.cu", "rng.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so the kernels round as the
 # plain versions do (the intersection kernels agree with theirs bit for bit)
@@ -54,6 +54,10 @@ ENTRY_POINTS = {
     "kd_stage_enqueue": [_PTR] * 8 + [_I32, _I32] + [_PTR] * 3,
     "sum_rows": [_PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _PTR],
     "sum_rows_blocks": [_I64],
+    "threefry_draw": [_PTR, _I64] + [_PTR, _I64, _I32] * 2
+                     + [_I64, _I32, _PTR, _PTR],
+    "threefry_words": [_PTR, _I64, _I32] * 4 + [_I64, _PTR, _PTR],
+    "threefry_uniform": [_PTR, _I64] * 2 + [_I64, _PTR, _PTR],
 }
 
 

@@ -788,12 +788,27 @@ def test_loaders_put_every_tensor_on_the_card(cuda, tmp_path):
         assert not off and len(found) > 20, off
 
 
+def exchange_draws(cfg, scene, device_keys: bool) -> dict:
+    """The RNG launches a sharded step makes beyond the unsharded
+    iteration's: PPM's all-to-all exchange draws its subsampling offset,
+    ``rng.uniform`` of a fold of the estimate key (``parallel/render.py``;
+    a second for the volume photons in a medium), the fold a launch too
+    where the keys are device tensors."""
+    from oppositerenderer_tpu_torch.config import PhotonExchange
+    n = 0
+    if cfg.render_method == RenderMethod.PROGRESSIVE_PHOTON_MAPPING and \
+            cfg.photon_exchange == PhotonExchange.ALL_TO_ALL:
+        n = 1 if scene.medium is None else 2
+    return {"threefry_uniform": n, "threefry_words": n if device_keys else 0}
+
+
 @pytest.mark.parametrize("name", ["ppm_all_to_all", "vcm_vm"])
 def test_sharded_step_over_a_gloo_rank_on_the_card(cuda, name):
     """The sharded step over a one-rank gloo group with the scene on the
     card: every collective carries its CUDA tensors through explicit host
     copies, B3 runs on the exchange's partial grid and B4 on the whole
-    image's tiles, with the unsharded launches, and the band equals the
+    image's tiles, with the unsharded launches and the exchange's draw
+    (``exchange_draws``), and the band equals the
     unsharded iteration (PPM bit for bit; VCM+VM within rtol 1e-5 + 1e-6
     max|ref|: its t=1 splats add atomically)."""
     import datetime
@@ -827,8 +842,10 @@ def test_sharded_step_over_a_gloo_rank_on_the_card(cuda, name):
     finally:
         dist.destroy_process_group()
     (band, sharded), (want, unsharded) = counts
-    assert sharded == unsharded and sharded[2 if name.startswith("ppm")
-                                            else 3] > 0
+    extra = exchange_draws(config_from(case["cfg"]), scene, False)
+    assert sharded == [u + extra.get(w.__name__, 0) for w, u in
+                       zip(kernel_wrappers(), unsharded)]
+    assert sharded[2 if name.startswith("ppm") else 3] > 0
     if name.startswith("ppm"):
         assert torch.equal(band, want)
     else:
@@ -935,10 +952,12 @@ def test_graph_film_equals_the_eager_film(cuda, method):
     """Each render path at 64^2 (PPM main on the kd-tree: its host build a
     host node of the graph): an eager step with device operands reads
     nothing back (but the kd-tree's, whose eager gather reads a live-lane
-    flag by design); the capture launches what an eager iteration
-    launches; the film of replays equals the eager body's sums bit for
-    bit (VCM at the SHARD_* bar), and the wrappers' counters stay still
-    while the replays render (the graph launches the kernels)."""
+    flag by design); the capture launches what an eager iteration on
+    device operands launches, and an eager iteration on a host key the
+    same but for the key folds, which it makes on the host; the film of
+    replays equals the eager body's sums bit for bit (VCM at the SHARD_*
+    bar), and the wrappers' counters stay still while the replays render
+    (the graph launches the kernels)."""
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
     from oppositerenderer_tpu_torch.core.rng import device_key
     from oppositerenderer_tpu_torch.renderer import ppm_radius_sq_traced
@@ -948,20 +967,26 @@ def test_graph_film_equals_the_eager_film(cuda, method):
     r = Renderer(scene, cam, cfg, seed=0)
     assert r.uses_graph()
     eager = r._build_fused(eager=True)
-    counts = [w.launches for w in kernel_wrappers()]
-    eager(r.camera, 0, r.root_key, 1, 1)
-    torch.cuda.synchronize()
-    one = {w.__name__: w.launches - c
-           for w, c in zip(kernel_wrappers(), counts)}
-    if method != "kd":
-        it = torch.full((), 1, dtype=torch.int64, device=cuda)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            r._raw_step()(r.camera, it, device_key(r.root_key, cuda),
-                          ppm_radius_sq_traced(r.ppm_initial_radius,
-                                               cfg.ppm_alpha, it))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+
+    def launched(fn):
+        counts = [w.launches for w in kernel_wrappers()]
+        fn()
+        torch.cuda.synchronize()
+        return {w.__name__: w.launches - c
+                for w, c in zip(kernel_wrappers(), counts)}
+
+    host = launched(lambda: eager(r.camera, 0, r.root_key, 1, 1))
+    it = torch.full((), 1, dtype=torch.int64, device=cuda)
+    torch.cuda.set_sync_debug_mode(0 if method == "kd" else "error")
+    try:
+        one = launched(lambda: r._raw_step()(
+            r.camera, it, device_key(r.root_key, cuda),
+            ppm_radius_sq_traced(r.ppm_initial_radius, cfg.ppm_alpha, it)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert one["threefry_words"] > host["threefry_words"]
+    assert {k: v for k, v in one.items() if k != "threefry_words"} == \
+        {k: v for k, v in host.items() if k != "threefry_words"}
     film = r.render(3)
     step = r.captured_step
     assert step.graph is not None and step.replays == 2
@@ -1018,11 +1043,12 @@ def test_captured_gradient_equals_the_eager_one(cuda, method):
     """The sharded loss and gradient over the rank-less mesh at 64^2: the
     replays of the captured forward and backward equal its eager route,
     bit for bit where two eager calls are (else rtol 1e-5), with the
-    eager call's launches and the wrappers' counters still; gradients of
-    earlier calls are not rewritten."""
+    launches of an eager call on device operands (on a host key the same
+    but for the key folds, made on the host) and the wrappers' counters
+    still; gradients of earlier calls are not rewritten."""
     from oppositerenderer_tpu_torch import diff
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
-    from oppositerenderer_tpu_torch.core.rng import make_root_key
+    from oppositerenderer_tpu_torch.core.rng import device_key, make_root_key
     from oppositerenderer_tpu_torch.parallel import make_mesh
     scene, cam = get_scene_by_name("CornellSmall", cuda)
     wrt = {("kd", 0): scene.materials.kd[0], ("emission_scale", 0): 1.0}
@@ -1035,7 +1061,16 @@ def test_captured_gradient_equals_the_eager_one(cuda, method):
     e1, e2 = fn.eager(**args), fn.eager(**args)
     eager = {w.__name__: (w.launches - c) // 2
              for w, c in zip(kernel_wrappers(), counts)}
-    assert fn.captured.capture_launches == eager
+    counts = [w.launches for w in kernel_wrappers()]
+    fn.eager(iteration=torch.full((), 2, dtype=torch.int64, device=cuda),
+             key=device_key(make_root_key(0), cuda),
+             radius_sq=torch.full((), 0.003, device=cuda))
+    on_card = {w.__name__: w.launches - c
+               for w, c in zip(kernel_wrappers(), counts)}
+    assert fn.captured.capture_launches == on_card
+    assert on_card["threefry_words"] > eager["threefry_words"]
+    assert {k: v for k, v in on_card.items() if k != "threefry_words"} == \
+        {k: v for k, v in eager.items() if k != "threefry_words"}
     counts = [w.launches for w in kernel_wrappers()]
     replayed = fn(**args)
     kept = first[1][("kd", 0)].clone()
@@ -1090,8 +1125,8 @@ def test_captured_sharded_step_equals_the_unsharded_replay(cuda, request,
     eager route, equals the unsharded Renderer iteration (itself a
     replay) bit for bit (VCM+VM at the SHARD_* bar), and its stats, which
     the step sums over ranks in float64, within rel 1e-6; the capture
-    launches what the unsharded iteration launches, and the replays call
-    no wrapper."""
+    launches what the unsharded iteration launches and the exchange's
+    draw (``exchange_draws``), and the replays call no wrapper."""
     from oppositerenderer_tpu_torch.accel import kernel_wrappers
     from oppositerenderer_tpu_torch.parallel import make_sharded_render_fn
     mesh = one_rank_mesh(request, ranks, cuda)
@@ -1115,8 +1150,10 @@ def test_captured_sharded_step_equals_the_unsharded_replay(cuda, request,
                                                     rel=1e-6), k
     assert step.captured.replays == 3
     assert sum(step.captured.capture_launches.values()) > 0
-    assert step.captured.capture_launches == \
-        r.captured_step.capture_launches
+    extra = exchange_draws(cfg, scene, True)
+    assert step.captured.capture_launches == {
+        k: v + extra.get(k, 0)
+        for k, v in r.captured_step.capture_launches.items()}
 
 
 @pytest.mark.parametrize("method,param", [("pt", "kd"),
@@ -1644,3 +1681,207 @@ def test_viewer_serves_frames_from_the_card(cuda):
     graph = svc.renderer.kernel_launches()
     assert all(w.launches - b + graph.get(w.__name__, 0) > 0
                for w, b in zip(RENDER_WRAPPERS[:3], before))
+
+# ---------------------------------------------------------------------------
+# the threefry RNG (csrc/rng.cu): each tensor call of core/rng.py one
+# launch, bit for bit the int64 chain of its plain version
+# ---------------------------------------------------------------------------
+
+RNG_WRAPPER_NAMES = ("threefry_draw", "threefry_words", "threefry_uniform")
+
+
+def rng_launches():
+    from oppositerenderer_tpu_torch.accel import rng_kernels as nk
+    return sum(getattr(nk, name).launches for name in RNG_WRAPPER_NAMES)
+
+
+def rng_key(dev, form: str, n: int):
+    """A key of ``form``: "host" (two ints), "device" (0-d tensors,
+    derived on the card from a device root and iteration) or "per_lane"
+    (``lane_key_words`` of G = 3 folds of it, cut to ``n`` lanes)."""
+    from oppositerenderer_tpu_torch.core import rng as trng
+    host = trng.iteration_key(trng.make_root_key(2**31 + 11), 5, 1)
+    if form == "host":
+        return host
+    key = trng.iteration_key(trng.device_key(trng.make_root_key(2**31 + 11),
+                                             dev),
+                             torch.full((), 5, dtype=torch.int64,
+                                        device=dev), 1)
+    assert tuple(int(w) for w in key) == host
+    if form == "device":
+        return key
+    per = -(-n // 3)
+    k0, k1 = trng.lane_key_words([trng.fold_in(key, g) for g in range(3)],
+                                 per, dev)
+    return k0[:n], k1[:n]
+
+
+@pytest.mark.parametrize("counter", [0, 7])
+@pytest.mark.parametrize("n", [262144, 1 << 20])
+@pytest.mark.parametrize("form", ["device", "per_lane", "host"])
+def test_rng_draws_equal_the_int64_chain(cuda, form, n, counter):
+    """next1, next2 and next3 of a LaneSampler on CUDA lanes (ids up to
+    2^32 - 1) from column counter 0 and 7: one kernel launch each, equal
+    bit for bit to the plain version on the same CUDA tensors and on the
+    CPU."""
+    from oppositerenderer_tpu_torch.core import rng as trng
+    gen = torch.Generator().manual_seed(n + counter)
+    lanes = torch.randint(0, 2**32, (n,), generator=gen, dtype=torch.int64)
+    lanes[:2] = torch.tensor([0, 2**32 - 1])
+    key = rng_key(cuda, form, n)
+    s = trng.LaneSampler(key, lanes.to(cuda))
+    s._n = counter
+    at = counter
+    for draw, cols in (("next1", 1), ("next2", 2), ("next3", 3),
+                       ("next3", 3), ("next1", 1)):
+        before = rng_launches()
+        got = getattr(s, draw)()
+        assert rng_launches() == before + 1
+        want = trng.lane_uniform_plain(*key, s._lanes, at, cols)
+        cpu_key = tuple(w.cpu() if torch.is_tensor(w) else w for w in key)
+        on_cpu = trng.lane_uniform_plain(*cpu_key, lanes, at, cols)
+        want = want[:, 0] if cols == 1 else want
+        on_cpu = on_cpu[:, 0] if cols == 1 else on_cpu
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           on_cpu.view(torch.int32)), draw
+        at += (cols + 1) // 2
+    assert s._n == at
+
+
+def test_rng_words_equal_the_int64_chain_on_random_words(cuda):
+    """threefry2x32 on 1-d words drawn at random, with 0 and 0xFFFFFFFF in
+    every operand, and on every mix of ints, 0-d and 1-d words: one launch
+    a call, the plain version's words (int64 in [0, 2^32)) bit for bit."""
+    from oppositerenderer_tpu_torch.core import rng as trng
+    rng = np.random.default_rng(26)
+    words = rng.integers(0, 2**32, (4, 4099), dtype=np.int64)
+    words[:, :4] = [[0, 0xFFFFFFFF, 0, 0xFFFFFFFF]] * 4
+    words[:, 4] = 0xFFFFFFFF
+    k0, k1, x0, x1 = (torch.as_tensor(w, device=cuda) for w in words)
+    cases = [(k0, k1, x0, x1), (k0[7], k1[7], x0, x1), (0xFFFFFFFF, 0, x0, x1),
+             (k0[3], k1[3], 0, x1[5]), (k0, 17, 0, 2**32 - 1),
+             (1, 2, x0[1], 9)]
+    for case in cases:
+        before = rng_launches()
+        got = trng.threefry2x32(*case)
+        assert rng_launches() == before + 1
+        want = trng.threefry2x32_plain(*case)
+        on_cpu = trng.threefry2x32_plain(*(w.cpu() if torch.is_tensor(w)
+                                           else w for w in case))
+        for g, w, c in zip(got, want, on_cpu):
+            assert g.dtype == torch.int64 and g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+            assert int(g.min()) >= 0 and int(g.max()) < 2**32
+
+
+def test_rng_key_folds_from_device_keys(cuda):
+    """fold_in (an int and a tensor datum), fold_in_range and
+    iteration_key on device keys: the host derivation's words, one launch
+    a fold (iteration_key two, fold_in_range one)."""
+    from oppositerenderer_tpu_torch.core import rng as trng
+    for seed in (0, 7, 2**31 - 1, 2**32 - 1, -3):
+        host = trng.make_root_key(seed)
+        dev = trng.device_key(host, cuda)
+        for data in (0, 5, 2**31, 2**32 - 1):
+            before = rng_launches()
+            got = trng.fold_in(dev, data)
+            got_t = trng.fold_in(host, torch.full((), data,
+                                                  dtype=torch.int64,
+                                                  device=cuda))
+            assert rng_launches() == before + 2
+            want = trng.fold_in(host, data)
+            assert tuple(int(w) for w in got) == want
+            assert tuple(int(w) for w in got_t) == want
+        for iteration, pass_id in ((0, 0), (17, 3), (2**31 + 3, 2)):
+            before = rng_launches()
+            got = trng.iteration_key(dev, torch.full(
+                (), iteration, dtype=torch.int64, device=cuda), pass_id)
+            assert rng_launches() == before + 2
+            assert tuple(int(w) for w in got) == trng.iteration_key(
+                host, iteration, pass_id)
+        before = rng_launches()
+        got = trng.fold_in_range(dev, 3001, 9)
+        assert rng_launches() == before + 1
+        assert [tuple(int(w) for w in k) for k in got] == \
+            trng.fold_in_range(host, 3001, 9)
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (3, 5), (4097,),
+                                   (262143,)])
+def test_rng_uniform_equals_the_int64_chain(cuda, shape):
+    """rng.uniform on the card at odd sizes, from a device key and a host
+    key: one launch each, the plain version's floats bit for bit (on the
+    card and on the CPU)."""
+    import math
+
+    from oppositerenderer_tpu_torch.core import rng as trng
+    host = trng.iteration_key(trng.make_root_key(-3), 6, 2)
+    want = trng.uniform_plain(host, math.prod(shape), "cpu").reshape(shape)
+    for key in (host, trng.device_key(host, cuda)):
+        before = rng_launches()
+        got = trng.uniform(key, shape, cuda)
+        assert rng_launches() == before + 1
+        assert got.shape == shape and got.device.type == "cuda"
+        on_card = trng.uniform_plain(key, math.prod(shape), cuda)
+        assert torch.equal(got.reshape(-1).view(torch.int32),
+                           on_card.view(torch.int32))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_rng_wrappers_reject_bad_inputs(cuda):
+    """Operands on the card and on the CPU at once raise before any
+    launch (what one device's operands are refused for is checked on the
+    CPU, ``test_torch_rng_kernels.py``)."""
+    from oppositerenderer_tpu_torch.accel import rng_kernels as nk
+    lanes = torch.arange(12, dtype=torch.int64, device=cuda)
+    bad = [lambda: nk.threefry_draw(lanes, lanes.cpu(), 2, 0, 3),
+           lambda: nk.threefry_draw(lanes, 1, lanes[0].cpu(), 0, 3),
+           lambda: nk.threefry_words(lanes, 1, 0, lanes.cpu()),
+           lambda: nk.threefry_uniform(lanes[0], 1, 4, "cpu")]
+    before = rng_launches()
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert rng_launches() == before
+
+
+@pytest.mark.parametrize("method", ["pt", "ppm", "vcm"])
+def test_rng_kernel_renders_the_int64_chains_film(cuda, monkeypatch, method):
+    """One captured 64^2 iteration of PT, PPM main and VCM main, and a
+    replay: the film with the kernel equals the film with the plain
+    version on the card (core.rng's dispatch patched off) bit for bit (VCM
+    at the SHARD_* bar). The eager iteration before the capture launches
+    the kernel once for each call the plain version makes on CUDA
+    tensors (draws and folds alike), the capture holds those launches,
+    and the plain version launches nothing."""
+    from oppositerenderer_tpu_torch.core import rng as trng
+
+    def render():
+        r = Renderer(*graph_scene(method, cuda), graph_config(method),
+                     seed=0)
+        before = rng_launches()
+        film = r.render(2)   # eager, then the capture; then a replay
+        torch.cuda.synchronize()
+        captured = sum(r.captured_step.capture_launches[k]
+                       for k in RNG_WRAPPER_NAMES)
+        return film.accum.clone(), rng_launches() - before, captured
+
+    got, launched, captured = render()
+    calls = []
+    plain = trng.threefry2x32_plain
+
+    def counted(*words):
+        if any(torch.is_tensor(w) and w.is_cuda for w in words):
+            calls.append(len(words))
+        return plain(*words)
+
+    monkeypatch.setattr(trng, "_on_card", lambda *xs: False)
+    monkeypatch.setattr(trng, "threefry2x32_plain", counted)
+    want, none, captured_plain = render()
+    assert none == 0 and captured_plain == 0
+    assert launched == captured > 0
+    assert len(calls) == 2 * launched   # the eager body and the capture
+    assert_films_agree(got, want, method not in ATOMIC)
